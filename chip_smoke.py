@@ -6,12 +6,22 @@ Run from the repository root on a machine with one NVIDIA GPU (sm_90a):
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from qpth_tpu_torch/csrc/, holds every
-kernel against its plain PyTorch version, drives the port's main path
-(bench.py's workload: B = 4096 random dense QPs, nz = nineq = 100, float32,
-forward and forward+backward) and the OptNet pattern (shared Q/G) through
-the kernels, checks the results against float64 solves on the card and on
-the CPU, and times kernels and solves with CUDA events. Any failed check
-exits nonzero. The last line of standard output is
+kernel against its plain PyTorch version, and drives the port's paths
+through the kernels at full width (B = 4096, float32 unless said):
+
+* bench.py's workload (random dense QPs, nz = nineq = 100), forward and
+  forward+backward, and the OptNet pattern (shared Q/G);
+* path 1: the same workload with 50 equality rows, fully batched;
+* path 2: the OptNet sudoku layer's QP (nz = nineq = 64, neq = 40, shared
+  matrices, batched p, gradients to A);
+* path 3: the direct x recurrence (untracked residuals, coeff_x=False) and
+  a warm-started re-solve;
+* path 4: the float64 default (substitution mode), without and with the
+  equality rows.
+
+It checks the results against float64 solves on the card and on the CPU
+and times kernels and solves with CUDA events. Any failed check exits
+nonzero. The last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -19,6 +29,7 @@ preceded by a {"kernels": [...]} line. Without CUDA it exits nonzero and
 prints no result.
 """
 
+import dataclasses
 import json
 import os
 import statistics
@@ -30,19 +41,31 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, NZ, NINEQ = 4096, 100, 100     # bench.py's workload
+NEQ = 50                          # equality rows added to it (paths 1, 4)
+# With equality rows the generator's Q (gram + 1e-3 I, condition 1e5-1e6) is
+# beyond float32 inverse mode: R = G Q^-1 G^T - S21 S11^-1 S21^T cancels
+# catastrophically (phase 6 prints the error it leaves). The equality
+# workload therefore shifts Q by EQ_SHIFT I (condition ~2.5e3; at 0.1 I the
+# forward is accurate but 28 of 4096 lanes still give a non-SPD T, hence
+# NaN gradients, in the backward); p, G, h, A, b are the draws as they are.
+EQ_SHIFT = 1.0
+SUDOKU = dict(nx=64, neq=40)      # the OptNet sudoku layer at n = 2
 N_F64_CARD, N_F64_CPU = 256, 64   # lanes re-solved in float64
 TOL_F32 = 1e-3                    # kernel vs plain, float32, main shape
 TOL_F64 = 1e-10                   # kernel vs plain, float64, odd shape
 REPS = 20
 
-#: Published peaks (memory bytes/s, float32 non-tensor FLOP/s) by card;
-#: the H100 SXM figures are NVIDIA's data sheet at 700 W.
-PEAKS = [("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12)]
+#: Published peaks (memory bytes/s, float32 and float64 non-tensor FLOP/s)
+#: by card; the H100 SXM figures are NVIDIA's data sheet at 700 W.
+PEAKS = [("H100 PCIe", 2.0e12, 51e12, 26e12),
+         ("H100 NVL", 3.9e12, 60e12, 30e12),
+         ("H200", 4.8e12, 67e12, 34e12), ("H100", 3.35e12, 67e12, 34e12)]
 
 
-def make_problem(nbatch, nz, nineq, seed=0):
-    """bench.py's generator: random feasible dense QPs, fully batched."""
+def make_problem(nbatch, nz, nineq, seed=0, neq=0):
+    """bench.py's generator: random feasible dense QPs, fully batched.
+    With ``neq`` it also returns A and b = A z0, drawn after the other
+    draws so that Q, p, G, h do not depend on neq."""
     npr = np.random.RandomState(seed)
     L = npr.rand(nbatch, nz, nz)
     Q = np.matmul(L, L.transpose(0, 2, 1)) + 1e-3 * np.eye(nz)
@@ -51,7 +74,24 @@ def make_problem(nbatch, nz, nineq, seed=0):
     s0 = npr.rand(nbatch, nineq)
     p = npr.randn(nbatch, nz)
     h = np.einsum("bmn,bn->bm", G, z0) + s0
-    return Q, p, G, h
+    if neq == 0:
+        return Q, p, G, h
+    A = npr.randn(nbatch, neq, nz)
+    return Q, p, G, h, A, np.einsum("bmn,bn->bm", A, z0)
+
+
+def make_sudoku(nbatch, nx, neq, seed=0):
+    """The QP of the OptNet sudoku layer (upstream qpth's sudoku notebook,
+    cell 10) with dense matrices: shared Q = 0.1 I, G = -I, h = 0, shared
+    A ~ U(0, 1), and p = -puzzle per example (a quarter of the cells
+    given). b = A z0 at the interior point z0 = 2 / nx, about 1 per row:
+    with b = 1 exactly, a random A leaves {x >= 0, A x = 1} empty, and an
+    infeasible QP has no solution to hold the solver to."""
+    npr = np.random.RandomState(seed)
+    A = npr.rand(neq, nx)
+    p = -(npr.rand(nbatch, nx) < 0.25).astype(np.float64)
+    return (0.1 * np.eye(nx), p, -np.eye(nx), np.zeros(nx), A,
+            A @ np.full(nx, 2.0 / nx))
 
 
 def fail(msg):
@@ -104,8 +144,8 @@ def main():
           f"cudnn {torch.backends.cudnn.allow_tf32} (the port turns both "
           "off during a solve)")
     name = torch.cuda.get_device_name(0)
-    mem_bw, f32_peak = next(((bw, fl) for key, bw, fl in PEAKS
-                             if key in name), PEAKS[-1][1:])
+    mem_bw, f32_peak, f64_peak = next((pk[1:] for pk in PEAKS
+                                       if pk[0] in name), PEAKS[-1][1:])
 
     sys.path.insert(0, ROOT)
     import qpth_tpu_torch as qt
@@ -138,7 +178,8 @@ def main():
 
     def compare(tag, got, want, tol, key=None):
         """Every output within tol * max(1, max |plain|) of the plain
-        version; records the max absolute difference."""
+        version; records the max absolute difference under ``key`` and
+        returns it."""
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
         e_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
@@ -151,6 +192,7 @@ def main():
               f"version ({e:.3e} > {tol:g}) or is not finite")
         if key is not None:
             errs[key] = max(errs[key], e_abs)
+        return e_abs
 
     variants = (("factor_inv", 0), ("factor_inv_solve", 1),
                 ("factor_inv_solve_rz", 2))
@@ -195,6 +237,111 @@ def main():
                     kernels.ipm_step_xfree_plain(Rb, sb, z, q - 1.0, nc),
                     TOL_F64)
             check(float(got[3][5]) == 0.0, "non-SPD lane was not frozen")
+
+    # inv_solve and the fused steps with the direct x update: float32 at
+    # the main shapes with batched and with shared (stride-0) operands,
+    # then float64 at a shape with nz != m != neq and one non-SPD lane.
+    def rnd(shape, dtype, seed, scale=0.5):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (scale * (torch.rand(*shape, generator=g, device=dev,
+                                    dtype=torch.float64) - 0.5)).to(dtype)
+
+    def step_operands(nb, m, nz, neq, shared, dtype, seed):
+        """(matrices, vectors) of ``ipm_step_eq``; ``shared`` names the
+        matrix groups given with batch 1: "R", "g" (Q^-1 G^T), "eq" (S21,
+        W, S11^-1, S11, Q^-1 A^T)."""
+        def b(key):
+            return 1 if key in shared else nb
+
+        be = b("eq")
+        mats = (spd(b("R"), m, dtype, seed),
+                rnd((b("g"), nz, m), dtype, seed + 1),
+                rnd((be, m, neq), dtype, seed + 2),
+                rnd((be, neq, m), dtype, seed + 3),
+                rnd((be, neq, neq), dtype, seed + 4),
+                rnd((be, neq, neq), dtype, seed + 5),
+                rnd((be, nz, neq), dtype, seed + 6))
+        s_, z_, q_ = vecs(nb, m, dtype, seed + 7, k=3)
+        x_, ip_ = (rnd((nb, nz), dtype, seed + k, 2.0) for k in (8, 9))
+        y_, rb_ = (rnd((nb, neq), dtype, seed + k, 2.0) for k in (10, 11))
+        return mats, (x_, s_, z_, y_, q_ - 1.0, ip_, rb_)
+
+    def no_eq(mats, v):
+        """``ipm_step``'s operands out of ``ipm_step_eq``'s."""
+        x_, s_, z_, _, q_, ip_, _ = v
+        return (mats[0], mats[1], x_, s_, z_, q_, ip_)
+
+    Linv = kernels.factor_inv(spd(B, NINEQ, torch.float32, 1),
+                              vecs(B, NINEQ, torch.float32, 2)[0])
+    rhs = vecs(B, NINEQ, torch.float32, 3)[0] - 1.0
+    got = kernels.inv_solve(Linv, rhs)
+    torch.cuda.synchronize()
+    inv_solve_f32_err = compare(f"inv_solve f32 B={B} m={NINEQ}", got,
+                                kernels.inv_solve_plain(Linv, rhs), TOL_F32)
+    # float64 at the main shape: what the float64 default (path 4) launches,
+    # kernel A's factor_solve once per iteration and inv_solve after it. The
+    # inv_solve row of the kernels line is this instantiation's.
+    R64 = spd(B, NINEQ, torch.float64, 1)
+    dinv64, rhs64 = vecs(B, NINEQ, torch.float64, 2, k=2)
+    got = kernels.factor_inv(R64, dinv64, rhs64)
+    torch.cuda.synchronize()
+    compare(f"factor_inv_solve f64 B={B} m={NINEQ}", got,
+            kernels.factor_inv_plain(R64, dinv64, rhs64), TOL_F64)
+    compare(f"inv_solve f64 B={B} m={NINEQ}",
+            kernels.inv_solve(got[0], rhs64 - 1.0),
+            kernels.inv_solve_plain(got[0], rhs64 - 1.0), TOL_F64,
+            "inv_solve")
+    del R64, dinv64, rhs64
+    for shared in ((), ("R", "g")):
+        mats, v = step_operands(B, NINEQ, NZ, NEQ, shared, torch.float32, 20)
+        for nc in (0, 2):
+            args = no_eq(mats, v) + (nc,)
+            got = kernels.ipm_step(*args)
+            torch.cuda.synchronize()
+            compare(f"ipm_step f32 B={B} m={NINEQ} nz={NZ} shared={shared} "
+                    f"n_correctors={nc}", got, kernels.ipm_step_plain(*args),
+                    TOL_F32, "ipm_step")
+    eq_shapes = [(NINEQ, NZ, NEQ, sh) for sh in
+                 ((), ("R", "g", "eq"), ("R", "eq"))]
+    eq_shapes.append((SUDOKU["nx"], SUDOKU["nx"], SUDOKU["neq"],
+                      ("R", "g", "eq")))
+    for m_, nz_, neq_, shared in eq_shapes:
+        mats, v = step_operands(B, m_, nz_, neq_, shared, torch.float32, 40)
+        for nc in (0, 2):
+            got = kernels.ipm_step_eq(*mats, *v, nc)
+            torch.cuda.synchronize()
+            compare(f"ipm_step_eq f32 B={B} m={m_} nz={nz_} neq={neq_} "
+                    f"shared={shared} n_correctors={nc}", got,
+                    kernels.ipm_step_eq_plain(*mats, *v, nc), TOL_F32,
+                    "ipm_step_eq")
+    Bo, mo, nzo, neqo = 64, 17, 33, 5
+    for shared in ((), ("R", "g", "eq")):
+        mats, v = step_operands(Bo, mo, nzo, neqo, shared, torch.float64, 60)
+        Linv = kernels.factor_inv(mats[0], v[1])
+        compare(f"inv_solve f64 B={Bo} m={mo} shared={shared}",
+                kernels.inv_solve(Linv, v[4]),
+                kernels.inv_solve_plain(Linv, v[4]), TOL_F64)
+        # As above: lane 5 alone is not SPD and must come back frozen.
+        Rb = (mats[0] - 2.0 * torch.eye(mo, device=dev,
+                                        dtype=torch.float64)).contiguous()
+        x_, s_, z_, y_, q_, ip_, rb_ = v
+        sb = z_ * (3.0 + s_)
+        sb[5] = 0.1 * z_[5]
+        mats, v = (Rb,) + mats[1:], (x_, sb, z_, y_, q_, ip_, rb_)
+        for nc in (0, 2):
+            for name_, fn, plain, args in (
+                    ("ipm_step", kernels.ipm_step, kernels.ipm_step_plain,
+                     no_eq(mats, v) + (nc,)),
+                    ("ipm_step_eq", kernels.ipm_step_eq,
+                     kernels.ipm_step_eq_plain, mats + v + (nc,))):
+                got = fn(*args)
+                compare(f"{name_} f64 B={Bo} m={mo} nz={nzo} neq={neqo} "
+                        f"shared={shared} n_correctors={nc} (lane 5 "
+                        "frozen)", got, plain(*args), TOL_F64)
+                check(float(got[-1][5]) == 0.0
+                      and bool(torch.equal(got[0][5], x_[5])),
+                      f"{name_}: non-SPD lane was not frozen")
+    del Linv, mats, v, got
 
     # ---- phase 3: forward at full width through the kernels ----
     Q, p, G, h = make_problem(B, NZ, NINEQ, seed=0)
@@ -271,7 +418,9 @@ def main():
           "gradients not finite")
     check(main_launches["factor_inv_solve"] == 1,
           "backward did not launch factor_inv_solve once")
-    missing = [k for k, v in main_launches.items() if v == 0]
+    missing = [k for k in ("factor_inv", "factor_inv_solve",
+                           "factor_inv_solve_rz", "ipm_step_xfree")
+               if main_launches[k] == 0]
     check(not missing, f"main path launched no {missing}")
     _, gQc, gpc = fwd_bwd(f64((Q, p, G, h), N_F64_CPU, dev), cfg64, dev)
     _, gQh, gph = fwd_bwd(f64((Q, p, G, h), N_F64_CPU, "cpu"), cfg64, "cpu")
@@ -310,7 +459,352 @@ def main():
     check(e <= 1e-8 and int(c64.stats.iterations)
           == int(h64.stats.iterations), "OptNet pattern f64 card vs CPU")
 
-    # ---- phase 6: timings (CUDA events, median of REPS after warm-up) ----
+    # ---- phases 6-9: this slice's paths, each with its own counts ----
+    def tensors(arrs, dtype, device, n=None):
+        """Arrays to tensors; ``n`` cuts the batch of those that carry
+        it (leading dimension B)."""
+        return [torch.tensor(v[:n] if n and v.shape[0] == B else v,
+                             dtype=dtype, device=device) for v in arrs]
+
+    def drive(tag, arrs, config, **kw):
+        """One forward through the entry point with the counts set to 0
+        just before and read just after."""
+        kernels.reset_launches()
+        sol = qt.solve_qp_full(*arrs, config=config, **kw)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        its_ = int(sol.stats.iterations)
+        print(f"# {tag}: iterations {its_}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }, best_resids "
+              f"max {float(sol.stats.best_resids.max()):.3e} median "
+              f"{float(sol.stats.best_resids.median()):.3e}")
+        for name_ in ("z", "nu", "lam", "s"):
+            check(bool(torch.isfinite(getattr(sol, name_)).all()),
+                  f"{tag}: {name_} not finite")
+        return sol, launches, its_
+
+    def fused_once_per_step(tag, launches, its_, key):
+        """The fused kernel ``key`` ran once per stepped iteration and no
+        other step kernel ran."""
+        others = {"ipm_step", "ipm_step_eq", "ipm_step_xfree",
+                  "inv_solve"} - {key}
+        check(launches[key] in (its_ - 1, its_) and launches[key] > 0
+              and not any(launches[k] for k in others),
+              f"{tag}: {key} did not run once per stepped iteration")
+
+    def grads_of(arrs, config, device, **kw):
+        """z and the gradients of sum(z^2) to every parameter."""
+        args = [t.clone().requires_grad_(True) for t in arrs]
+        z_ = qt.solve_qp(*args, config=config, device=device, **kw)
+        (z_ * z_).sum().backward()
+        return z_.detach(), [a.grad for a in args]
+
+    def f32_error(tag, z32_, arrs_np, config64, limit=2e-2):
+        """Median relative z error of the float32 solve against a float64
+        solve of the first N_F64_CARD lanes on the card; ``limit`` None
+        reports it without a check."""
+        ref = qt.solve_qp_full(*tensors(arrs_np, torch.float64, dev,
+                                        N_F64_CARD), config=config64)
+        err = ((z32_[:N_F64_CARD].double() - ref.z).norm(dim=1)
+               / ref.z.norm(dim=1).clamp_min(1e-300))
+        med_ = float(err.median())
+        print(f"# {tag}: f32 vs f64 (card) over {N_F64_CARD} lanes: median "
+              f"relative z error {med_:.3e}, max {float(err.max()):.3e}")
+        check(limit is None or med_ <= limit, f"{tag}: f32 median relative "
+              f"error {med_:.3e} > {limit}")
+        return med_
+
+    def card_vs_cpu(tag, arrs_np, config, names, same_iterations=True):
+        """float64 on the card against float64 on the CPU over N_F64_CPU
+        lanes: z and nu to 1e-8, the gradients named in ``names`` to 1e-7
+        (relative to the largest entry)."""
+        out = {}
+        for device in (dev, "cpu"):
+            arrs = tensors(arrs_np, torch.float64, device, N_F64_CPU)
+            sol_ = qt.solve_qp_full(*arrs, config=config, device=device)
+            _, g_ = grads_of(arrs, config, device)
+            out[device] = (sol_, g_)
+        (sc_, gc_), (sh_, gh_) = out[dev], out["cpu"]
+        ez = rel(sc_.z.cpu(), sh_.z)
+        enu = rel(sc_.nu.cpu(), sh_.nu) if sh_.nu.shape[1] else 0.0
+        eg = {n: rel(gc_[i].cpu(), gh_[i])
+              for i, n in enumerate("QpGhAb"[:len(gc_)]) if n in names}
+        print(f"# {tag}: f64 card vs CPU over {N_F64_CPU} lanes: z "
+              f"{ez:.3e}, nu {enu:.3e}, gradients "
+              + ", ".join(f"{n} {e:.3e}" for n, e in eg.items())
+              + f"; iterations {int(sc_.stats.iterations)} / "
+              f"{int(sh_.stats.iterations)}")
+        check(ez <= 1e-8 and enu <= 1e-8, f"{tag}: f64 card vs CPU z/nu")
+        check(all(e <= 1e-7 for e in eg.values()),
+              f"{tag}: f64 card vs CPU gradients")
+        if same_iterations:
+            check(int(sc_.stats.iterations) == int(sh_.stats.iterations),
+                  f"{tag}: f64 card vs CPU iterations differ")
+        return dict(z=ez, nu=enu, grads=eg)
+
+    path_launches, path_facts = {}, {}
+
+    # ---- phase 6 (path 1): equality constraints, fully batched ----
+    eq_raw = make_problem(B, NZ, NINEQ, seed=0, neq=NEQ)
+    check(all(np.array_equal(a, c) for a, c in zip(eq_raw, (Q, p, G, h))),
+          "the equality rows changed the draws of Q, p, G, h")
+    eq_np = (eq_raw[0] + EQ_SHIFT * np.eye(NZ),) + eq_raw[1:]
+    eq32 = tensors(eq_np, torch.float32, dev)
+    sol1, l1, its1 = drive(f"phase 6 (path 1): eq forward f32 B={B} "
+                           f"neq={NEQ}", eq32, cfg)
+    fused_once_per_step("path 1", l1, its1, "ipm_step_eq")
+    check(l1["factor_inv"] == 2 and l1["factor_inv_solve_rz"] == 1,
+          "path 1: prefactor (Q and S11) and init launches")
+    med1 = f32_error("phase 6 (path 1)", sol1.z, eq_np, cfg64)
+    kernels.reset_launches()
+    _, g1 = grads_of(eq32, cfg, dev)
+    torch.cuda.synchronize()
+    path_launches["path1_eq_batched"] = dict(forward=l1,
+                                             forward_backward=dict(
+                                                 kernels.LAUNCHES))
+    print(f"# phase 6 (path 1): forward+backward launches "
+          f"{path_launches['path1_eq_batched']['forward_backward']}")
+    check(all(bool(torch.isfinite(g_).all()) for g_ in g1)
+          and len(g1) == 6, "path 1: gradients to all six not finite")
+    check(kernels.LAUNCHES["factor_inv_solve"] == 1
+          and kernels.LAUNCHES["ipm_step_eq"] > 0,
+          "path 1: backward did not launch factor_inv_solve once")
+    # The generator's own Q, reported and not held to a limit: float32
+    # inverse mode cannot solve it with equality rows (the JAX package's
+    # float32 path leaves the same error; tests/test_torch_qp_eq.py).
+    cfg_quiet = qt.SolverConfig(check_Q_spd=False, verbose=-1)
+    sol1r, _, its1r = drive("phase 6 (path 1, Q unshifted, not gated)",
+                            tensors(eq_raw, torch.float32, dev), cfg_quiet)
+    med1r = f32_error("phase 6 (path 1, Q unshifted, not gated)", sol1r.z,
+                      eq_raw, cfg64, limit=None)
+    path_facts["path1_eq_batched"] = dict(
+        iterations=its1, f32_median_rel_err=med1, q_shift=EQ_SHIFT,
+        unshifted=dict(iterations=its1r, f32_median_rel_err=med1r),
+        card_vs_cpu=card_vs_cpu("phase 6 (path 1)", eq_np, cfg64, "QpGhAb"))
+    del g1, sol1r
+
+    # ---- phase 7 (path 2): the OptNet sudoku pattern ----
+    # R = G Q^-1 G^T - S21 W = 10 (I - P_A) is singular here, so in the
+    # backward T = R + diag(s / lam) leans on its diagonal. At the default
+    # backward clamp (1e-8) s / lam reaches 1e-17 and 58 of 4096 lanes give
+    # a T that is not SPD in float32 (NaN in the A gradient, which sums
+    # over lanes); float32 needs grad_clamp = 1e-5 on this QP.
+    cfg_sud = qt.SolverConfig(check_Q_spd=False, grad_clamp=1e-5)
+    sud_np = make_sudoku(B, SUDOKU["nx"], SUDOKU["neq"], seed=0)
+    sud32 = tensors(sud_np, torch.float32, dev)
+    sol2, l2, its2 = drive(f"phase 7 (path 2): sudoku pattern f32 B={B} "
+                           f"nz=nineq={SUDOKU['nx']} neq={SUDOKU['neq']}",
+                           sud32, cfg_sud)
+    fused_once_per_step("path 2", l2, its2, "ipm_step_eq")
+    med2 = f32_error("phase 7 (path 2)", sol2.z, sud_np, cfg64)
+    kernels.reset_launches()
+    _, g2 = grads_of(sud32, cfg_sud, dev)
+    torch.cuda.synchronize()
+    path_launches["path2_sudoku"] = dict(forward=l2, forward_backward=dict(
+        kernels.LAUNCHES))
+    check(tuple(g2[4].shape) == (SUDOKU["neq"], SUDOKU["nx"])
+          and bool(torch.isfinite(g2[4]).all())
+          and kernels.LAUNCHES["ipm_step_eq"] > 0,
+          "path 2: gradient to the shared A")
+    # How good the float32 gradient is: against float64 with the same
+    # clamp, per lane (A given per lane over N_F64_CARD lanes) and for the
+    # shared A (the sum over all lanes, where the lanes' errors meet
+    # cancellation). The QP is degenerate (x_i = 0 with lam_i near 0 in
+    # many coordinates), so a float32 forward error of 1e-3 moves some
+    # lanes' d = lam / s a long way: the per-lane median is the metric.
+    cfg64_sud = qt.SolverConfig(solve_method="inverse", resid_every=7,
+                                check_Q_spd=False, grad_clamp=1e-5)
+    _, g2_64 = grads_of(tensors(sud_np, torch.float64, dev), cfg64_sud, dev)
+    cos_gA = float(torch.nn.functional.cosine_similarity(
+        g2[4].double().flatten(), g2_64[4].flatten(), dim=0))
+    lanes_np = [v[:N_F64_CARD] if v.shape[0] == B else v for v in sud_np]
+    lanes_np[4] = np.broadcast_to(sud_np[4], (N_F64_CARD,)
+                                  + sud_np[4].shape).copy()
+    per_lane = [grads_of(tensors(lanes_np, dt, dev), c_, dev)[1][4]
+                .double().flatten(1)
+                for dt, c_ in ((torch.float32, cfg_sud),
+                               (torch.float64, cfg64_sud))]
+    lane_err = ((per_lane[0] - per_lane[1]).norm(dim=1)
+                / per_lane[1].norm(dim=1).clamp_min(1e-300))
+    med_gA = float(lane_err.median())
+    print(f"# phase 7 (path 2): gradient to A, f32 vs f64 on the card "
+          f"(grad_clamp 1e-5): per lane over {N_F64_CARD} lanes median rel "
+          f"err {med_gA:.3e}, 90th percentile "
+          f"{float(lane_err.quantile(0.9)):.3e}; shared A over all {B} "
+          f"lanes: max-norm rel err {rel(g2[4].double(), g2_64[4]):.3e}, "
+          f"cosine {cos_gA:.4f}")
+    check(med_gA <= 5e-2 and cos_gA >= 0.9,
+          f"path 2: f32 gradient to A (per-lane median {med_gA:.3e}, "
+          f"cosine {cos_gA:.4f})")
+    # The layer's own b = 1, reported and not held to a limit: with a
+    # random A the set {x >= 0, A x = 1} is empty, so there is no solution
+    # to hold the solver to: it returns its least-bad iterate, A z = 1 with
+    # some z_i < 0, and its best score stays of order 1.
+    b1_np = sud_np[:5] + (np.ones(SUDOKU["neq"]),)
+    b1_facts = {}
+    for dt, c_ in ((torch.float64, cfg64), (torch.float32, cfg_sud)):
+        arrs = tensors(b1_np, dt, dev, N_F64_CARD)
+        sol_b1 = qt.solve_qp_full(*arrs, config=dataclasses.replace(
+            c_, verbose=-1))
+        r_eq = (sol_b1.z @ arrs[4].T - arrs[5]).abs().amax(dim=1)
+        z_min = sol_b1.z.amin(dim=1)
+        b1_facts[str(dt).split(".")[-1]] = dict(
+            iterations=int(sol_b1.stats.iterations),
+            best_resids_median=float(sol_b1.stats.best_resids.median()),
+            best_resids_min=float(sol_b1.stats.best_resids.min()),
+            eq_residual_median=float(r_eq.median()),
+            z_min_median=float(z_min.median()))
+        print(f"# phase 7 (path 2, b = 1, not gated) {dt} over "
+              f"{N_F64_CARD} lanes: iterations "
+              f"{int(sol_b1.stats.iterations)}, best_resids min "
+              f"{float(sol_b1.stats.best_resids.min()):.3e} median "
+              f"{float(sol_b1.stats.best_resids.median()):.3e}, max |A z - "
+              f"1| per lane median {float(r_eq.median()):.3e}, min z per "
+              f"lane median {float(z_min.median()):.3e}")
+    path_facts["path2_sudoku"] = dict(
+        iterations=its2, f32_median_rel_err=med2, b_equal_1=b1_facts,
+        grad_A_f32_vs_f64=dict(per_lane_median=med_gA, shared_cosine=cos_gA),
+        card_vs_cpu=card_vs_cpu("phase 7 (path 2)", sud_np, cfg64, "pAb"))
+    del g2, g2_64, per_lane
+
+    # ---- phase 8 (path 3): the direct x recurrence and a warm start ----
+    cfg_r1 = qt.SolverConfig(check_Q_spd=False, resid_every=1)
+    cfg_cx = qt.SolverConfig(check_Q_spd=False, coeff_x=False)
+    sol3, l3, its3 = drive(f"phase 8 (path 3): resid_every=1 f32 B={B}",
+                           f32, cfg_r1)
+    fused_once_per_step("path 3 resid_every=1", l3, its3, "ipm_step")
+    med3 = f32_error("phase 8 (path 3) resid_every=1", sol3.z,
+                     (Q, p, G, h), cfg64)
+    sol3c, l3c, its3c = drive(f"phase 8 (path 3): coeff_x=False f32 B={B}",
+                              f32, cfg_cx)
+    fused_once_per_step("path 3 coeff_x=False", l3c, its3c, "ipm_step")
+    # Receding-horizon re-solve: p moves a little, the last solution
+    # starts the next solve.
+    p2 = p + 0.05 * np.random.RandomState(3).randn(B, NZ)
+    warm32 = [f32[0], torch.tensor(p2, dtype=torch.float32, device=dev),
+              f32[2], f32[3]]
+    init = (sol3c.z, sol3c.s, sol3c.lam, None)
+    sol3w, l3w, its3w = drive("phase 8 (path 3): warm-started re-solve",
+                              warm32, cfg_cx, init=init)
+    fused_once_per_step("path 3 warm start", l3w, its3w, "ipm_step")
+    sol3k, _, its3k = drive("phase 8 (path 3): the same re-solve, cold",
+                            warm32, cfg_cx)
+    med3w = f32_error("phase 8 (path 3) warm start", sol3w.z,
+                      (Q, p2, G, h), cfg64)
+    path_launches["path3_direct_x"] = dict(resid_every_1=l3,
+                                           coeff_x_false=l3c, warm=l3w)
+    cfg64_r1 = qt.SolverConfig(solve_method="inverse", resid_every=1,
+                               eps=1e-9, refine_steps=0, check_Q_spd=False)
+    path_facts["path3_direct_x"] = dict(
+        iterations=dict(resid_every_1=its3, coeff_x_false=its3c,
+                        warm=its3w, cold=its3k),
+        f32_median_rel_err=dict(resid_every_1=med3, warm=med3w),
+        card_vs_cpu=card_vs_cpu("phase 8 (path 3) resid_every=1, eps=1e-9",
+                                (Q, p, G, h), cfg64_r1, "Qp"))
+
+    # ---- phase 9 (path 4): the float64 default (substitution mode) ----
+    cfg_d64 = qt.SolverConfig(check_Q_spd=False)
+    cfg_d64_e9 = qt.SolverConfig(check_Q_spd=False, eps=1e-9,
+                                 refine_steps=0)
+
+    def score_trajectory(arrs_np, device):
+        """Per-lane best score after k = 1 .. max_iter scorings of the
+        float64 default with both exits off (eps = 0, a window that never
+        closes), over N_F64_CPU lanes: (max_iter, N_F64_CPU)."""
+        arrs = tensors(arrs_np, torch.float64, device, N_F64_CPU)
+        return torch.stack([qt.solve_qp_full(*arrs, config=qt.SolverConfig(
+            check_Q_spd=False, eps=0.0, not_improved_lim=10 ** 6,
+            max_iter=k, verbose=-1), device=device).stats.best_resids.cpu()
+            for k in range(1, cfg_d64.max_iter + 1)])
+
+    def exit_of(traj):
+        """(iterations, test that fires) of the default exits replayed on
+        a trajectory: the global not-improved window, then max best < eps."""
+        n_not = 0
+        for k in range(traj.shape[0]):
+            improved = k == 0 or bool((traj[k] < traj[k - 1]).any())
+            n_not = 0 if improved else n_not + 1
+            if n_not >= cfg_d64.not_improved_lim:
+                return k + 1, "window"
+            if float(traj[k].max()) < cfg_d64.eps:
+                return k + 1, "eps"
+        return traj.shape[0], "max_iter"
+
+    def exit_diagnosis(tag, arrs_np):
+        """Where the card's and the CPU's float64 default part over the
+        N_F64_CPU lanes: the best score per iteration on both, the exit
+        each trajectory gives, and their agreement above the rounding
+        floor (held to 1e-2 relative + 1e-11)."""
+        tc, th = (score_trajectory(arrs_np, d_) for d_ in (dev, "cpu"))
+        print(f"# {tag}: best score per iteration over {N_F64_CPU} lanes, "
+              "exits off: iteration, max (card, CPU), lanes that improved "
+              "(card, CPU)")
+        for k in range(tc.shape[0]):
+            imp = [int((t_[k] < t_[k - 1]).sum()) if k else N_F64_CPU
+                   for t_ in (tc, th)]
+            print(f"#   {k + 1:2d}  {float(tc[k].max()):.3e} "
+                  f"{float(th[k].max()):.3e}  {imp[0]:3d} {imp[1]:3d}")
+        gap = (tc - th).abs() - (1e-2 * th + 1e-11)
+        exits = dict(card=exit_of(tc), cpu=exit_of(th))
+        print(f"# {tag}: replayed exits: card {exits['card']}, CPU "
+              f"{exits['cpu']}; worst lane's floor: card "
+              f"{float(tc[-1].max()):.3e}, CPU {float(th[-1].max()):.3e} "
+              f"(eps {cfg_d64.eps:g})")
+        check(bool((gap <= 0).all()), f"{tag}: the card's and the CPU's "
+              "score trajectories part above the rounding floor")
+        return dict(exits=exits, floor_card=float(tc[-1].max()),
+                    floor_cpu=float(th[-1].max()))
+
+    for key, arrs_np in (("path4_f64_default", (Q, p, G, h)),
+                         ("path4_f64_default_eq", eq_np)):
+        d64 = tensors(arrs_np, torch.float64, dev)
+        tag = f"phase 9 ({key}) f64 B={B}"
+        sol4, l4, its4 = drive(tag, d64, cfg_d64)
+        stepped = l4["inv_solve"]       # one corrector solve per step
+        check(stepped in (its4 - 1, its4) and stepped > 0
+              and l4["factor_inv_solve"] == stepped + 1
+              and not any(l4[k] for k in ("ipm_step", "ipm_step_eq",
+                                          "ipm_step_xfree")),
+              f"{key}: the composed step did not run kernel A's "
+              "factor_solve and inv_solve once per stepped iteration")
+        check(float(sol4.stats.best_resids.max()) < 1e-10,
+              f"{key}: float64 residuals {sol4.stats.best_resids.max()}")
+        kernels.reset_launches()
+        _, g4 = grads_of(d64, cfg_d64, dev)
+        torch.cuda.synchronize()
+        path_launches[key] = dict(forward=l4, forward_backward=dict(
+            kernels.LAUNCHES))
+        check(all(bool(torch.isfinite(g_).all()) for g_ in g4)
+              and kernels.LAUNCHES["inv_solve"] > 0,
+              f"{key}: gradients not finite")
+        # The default eps = 1e-12 sits at the float64 rounding floor of
+        # the worst lane's score at this width, so rounding decides whether
+        # max best < eps ever fires: the solutions are held at the default,
+        # the iteration counts at eps = 1e-9, and exit_diagnosis shows
+        # where the two devices part and that each exit follows from its
+        # own trajectory.
+        names = "QpGhAb"[:len(arrs_np)]
+        facts = dict(
+            iterations=its4,
+            best_resids_max=float(sol4.stats.best_resids.max()),
+            card_vs_cpu=card_vs_cpu(tag, arrs_np, cfg_d64, names,
+                                    same_iterations=False),
+            card_vs_cpu_eps_1e9=card_vs_cpu(tag + " eps=1e-9", arrs_np,
+                                            cfg_d64_e9, names),
+            exit=exit_diagnosis(tag, arrs_np))
+        for device in (dev, "cpu"):
+            its_d = int(qt.solve_qp_full(
+                *tensors(arrs_np, torch.float64, device, N_F64_CPU),
+                config=cfg_d64, device=device).stats.iterations)
+            replay = facts["exit"]["exits"]["cpu" if device == "cpu"
+                                            else "card"]
+            check(its_d == replay[0], f"{key}: the default solve on "
+                  f"{device} took {its_d} iterations, its replayed "
+                  f"trajectory {replay}")
+        path_facts[key] = facts
+        del d64, g4, sol4
+
+    # ---- phase 10: timings (CUDA events, median of REPS after warm-up) ----
     def cuda_ms(fn, reps=REPS, warm=3):
         for _ in range(warm):
             fn()
@@ -330,9 +824,14 @@ def main():
     dinv, rhs, z, q = vecs(B, NINEQ, torch.float32, 6)
     m, elt = NINEQ, 4
     mat, vec = B * m * m * elt, B * m * elt
+    # R is symmetric and Linv lower triangular: as an input either needs
+    # only its triangle read. Linv as an output is a dense tensor whose
+    # zeros are written too.
+    tri = B * (m * (m + 1) // 2)
+    rtri = tri * elt
 
-    def bound(nbytes, flops):
-        t_b, t_o = nbytes / mem_bw * 1e3, flops / f32_peak * 1e3
+    def bound(nbytes, flops, peak=f32_peak):
+        t_b, t_o = nbytes / mem_bw * 1e3, flops / peak * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
     fac_flops = B * (2.0 / 3.0) * m ** 3
@@ -344,14 +843,14 @@ def main():
         return torch.linalg.solve_triangular(L, eye, upper=False)
 
     lib_ms = cuda_ms(library_linv)
-    print(f"# phase 6: library yardstick for factor_inv: "
+    print(f"# phase 10: library yardstick for factor_inv: "
           f"torch.linalg.cholesky_ex + torch.linalg.solve_triangular "
           f"(two calls) {lib_ms:.3f} ms")
     specs = [
-        ("factor_inv", (R, dinv), mat + vec + mat, fac_flops, 531),
-        ("factor_inv_solve", (R, dinv, rhs), mat + 3 * vec + mat,
+        ("factor_inv", (R, dinv), rtri + vec + mat, fac_flops, 531),
+        ("factor_inv_solve", (R, dinv, rhs), rtri + 3 * vec + mat,
          fac_flops + B * 2 * m * m, 540),
-        ("factor_inv_solve_rz", (R, dinv, rhs, z), mat + 4 * vec + mat,
+        ("factor_inv_solve_rz", (R, dinv, rhs, z), rtri + 4 * vec + mat,
          fac_flops + B * 4 * m * m, 550),
     ]
     rows = []
@@ -365,14 +864,25 @@ def main():
             replaces=f"qpth_tpu/ops/pallas/lanes.py:{line}",
             launches=main_launches[name_], max_abs_err=errs[name_],
             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms,
+            bound_bytes=nbytes, library_ms=lib_ms,
             library_call="torch.linalg.cholesky_ex + "
                          "torch.linalg.solve_triangular (two calls)"))
+    # Kernel A's factor_solve in float64, as path 4 launches it once per
+    # iteration.
+    R64 = spd(B, m, torch.float64, 5)
+    dinv64, rhs64 = vecs(B, m, torch.float64, 6, k=2)
+    rows[1]["f64_ms"] = cuda_ms(lambda: kernels.factor_inv(R64, dinv64,
+                                                           rhs64))
+    rows[1]["f64_bound_ms"] = bound(2 * (rtri + 3 * vec + mat),
+                                    fac_flops + B * 2 * m * m, f64_peak)[0]
+    print(f"# phase 10: factor_inv_solve f64: {rows[1]['f64_ms']:.3f} ms "
+          f"(bound {rows[1]['f64_bound_ms']:.4f} ms) at B={B} m={m}")
     nc = cfg.n_correctors
     k_ms = cuda_ms(lambda: kernels.ipm_step_xfree(R, dinv, z, q - 1.0, nc))
     p_ms = cuda_ms(lambda: kernels.ipm_step_xfree_plain(R, dinv, z, q - 1.0,
                                                         nc))
-    b_ms, b_by = bound(mat + 6 * vec + B * elt,
+    xfree_bytes = rtri + 6 * vec + B * elt
+    b_ms, b_by = bound(xfree_bytes,
                        fac_flops + B * (2 + 2 * (2 + nc)) * m * m)
     rows.append(dict(
         name="ipm_step_xfree", route="cuda",
@@ -380,13 +890,97 @@ def main():
         replaces="qpth_tpu/ops/pallas/lanes.py:1103",
         launches=main_launches["ipm_step_xfree"],
         max_abs_err=errs["ipm_step_xfree"], ms=k_ms, plain_ms=p_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
+        bound_ms=b_ms, bound_by=b_by, bound_bytes=xfree_bytes,
+        library_ms=None))
+    # The three kernels of this slice at the main shapes (batched operands).
+    nz, neq = NZ, NEQ
+    mats, v = step_operands(B, m, nz, neq, (), torch.float32, 80)
+    Linv = kernels.factor_inv(R, dinv)
+    apply_flops = B * (2 + 2 * (2 + nc)) * m * m   # R z and the solves
+
+    # inv_solve reads the lower triangle of Linv (the rest is zero and is
+    # never touched) and rhs, writes x, and does two triangular products.
+    # Its row is float64, what path 4 launches; float32 beside it.
+    Linv64 = kernels.factor_inv(R64, dinv64)
+
+    def inv_solve_facts(Linv_, rhs_, elt_, peak):
+        def library():
+            w_ = torch.matmul(Linv_, rhs_.unsqueeze(-1))
+            return torch.matmul(Linv_.transpose(-1, -2), w_)
+
+        nbytes = (tri + 2 * B * m) * elt_
+        b_ms_, b_by_ = bound(nbytes, 4.0 * tri, peak)
+        return dict(ms=cuda_ms(lambda: kernels.inv_solve(Linv_, rhs_)),
+                    plain_ms=cuda_ms(
+                        lambda: kernels.inv_solve_plain(Linv_, rhs_)),
+                    bound_ms=b_ms_, bound_by=b_by_, bound_bytes=nbytes,
+                    library_ms=cuda_ms(library))
+
+    inv64 = inv_solve_facts(Linv64, rhs64 - 1.0, 8, f64_peak)
+    inv32 = dict(inv_solve_facts(Linv, rhs - 1.0, elt, f32_peak),
+                 max_abs_err=inv_solve_f32_err)
+    step_args = no_eq(mats, v) + (nc,)
+    eq_args = mats + v + (nc,)
+    eq_mat_bytes = rtri + B * elt * (nz * m + 2 * m * neq + 2 * neq * neq
+                                     + nz * neq)
+    new_specs = [
+        ("ipm_step", "ipm_step.cu", 918,
+         lambda: kernels.ipm_step(*step_args),
+         lambda: kernels.ipm_step_plain(*step_args),
+         rtri + B * nz * m * elt + 5 * vec + 3 * B * nz * elt + B * elt,
+         fac_flops + apply_flops + B * 2 * nz * m),
+        ("ipm_step_eq", "ipm_step_eq.cu", 1158,
+         lambda: kernels.ipm_step_eq(*eq_args),
+         lambda: kernels.ipm_step_eq_plain(*eq_args),
+         eq_mat_bytes + 5 * vec + 3 * B * (nz + neq) * elt + B * elt,
+         fac_flops + apply_flops
+         + B * 2 * (nz * m + nz * neq + (5 + nc) * m * neq + 2 * neq * neq)),
+    ]
+    # launches: inv_solve from path 4 with equality rows, ipm_step from
+    # path 3 (resid_every=1), ipm_step_eq from path 1, each one
+    # forward+backward (path 3: forward) through the entry points.
+    new_launches = {
+        "inv_solve": path_launches["path4_f64_default_eq"][
+            "forward_backward"]["inv_solve"],
+        "ipm_step": path_launches["path3_direct_x"]["resid_every_1"][
+            "ipm_step"],
+        "ipm_step_eq": path_launches["path1_eq_batched"][
+            "forward_backward"]["ipm_step_eq"],
+    }
+    check(new_launches["inv_solve"] > 0, "its path launched no inv_solve")
+    rows.append(dict(
+        name="inv_solve", route="cuda",
+        source="qpth_tpu_torch/csrc/inv_solve.cu",
+        replaces="qpth_tpu/ops/pallas/lanes.py:567",
+        launches=new_launches["inv_solve"], max_abs_err=errs["inv_solve"],
+        dtype="float64", **inv64, float32=inv32,
+        library_call="torch.matmul twice (Linv rhs, then Linv^T of it)"))
+    for name_, src, line, k_fn, p_fn, nbytes, flops in new_specs:
+        check(new_launches[name_] > 0, f"its path launched no {name_}")
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(
+            name=name_, route="cuda", source=f"qpth_tpu_torch/csrc/{src}",
+            replaces=f"qpth_tpu/ops/pallas/lanes.py:{line}",
+            launches=new_launches[name_], max_abs_err=errs[name_],
+            ms=cuda_ms(k_fn), plain_ms=cuda_ms(p_fn), bound_ms=b_ms,
+            bound_by=b_by, bound_bytes=nbytes, library_ms=None))
     for r in rows:
-        print(f"# phase 6: {r['name']}: {r['ms']:.3f} ms (plain "
+        lib = (f", library {r['library_ms']:.3f} ms"
+               if r["library_ms"] is not None else "")
+        print(f"# phase 10: {r['name']}: {r['ms']:.3f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}) at B={B} m={m} f32")
+              f"{r['bound_by']}{lib}) at B={B} m={m} "
+              f"{r.get('dtype', 'float32')}")
+    print(f"# phase 10: inv_solve float32: {inv32['ms']:.3f} ms (plain "
+          f"{inv32['plain_ms']:.3f} ms, bound {inv32['bound_ms']:.4f} ms by "
+          f"{inv32['bound_by']}, library {inv32['library_ms']:.3f} ms)")
+    del mats, v, Linv, Linv64, R64, step_args, eq_args
+
+    spread = {}
 
     def host_ms(fn, reps=5):
+        """Median wall time of ``fn`` ending in a synchronize, after one
+        warm-up call; the (min, max) of the last call is in ``spread``."""
         fn()
         torch.cuda.synchronize()
         ts = []
@@ -395,56 +989,109 @@ def main():
             fn()
             torch.cuda.synchronize()
             ts.append((time.perf_counter() - t0) * 1e3)
+        spread["last"] = (min(ts), max(ts))
         return statistics.median(ts)
+
+    def report(tag, ms, its_=None):
+        lo, hi = spread["last"]
+        print(f"# phase 10: {tag}: {ms:.2f} ms/solve (min {lo:.2f}, max "
+              f"{hi:.2f}; {B / ms * 1e3:.0f} QPs/s)"
+              + (f", iterations {its_}" if its_ is not None else ""))
+        return ms
 
     fwd_ms = host_ms(lambda: qt.solve_qp_full(*f32, config=cfg))
     fb_ms = host_ms(lambda: fwd_bwd(f32, cfg, dev))
-    print(f"# phase 6: forward {fwd_ms:.2f} ms/solve "
+    print(f"# phase 10: forward {fwd_ms:.2f} ms/solve "
           f"({B / fwd_ms * 1e3:.0f} QPs/s), forward+backward "
           f"{fb_ms:.2f} ms/solve ({B / fb_ms * 1e3:.0f} QPs/s) at B={B} "
           f"nz=nineq={NZ} f32, iterations {its}")
     opt_fwd_ms = host_ms(lambda: qt.solve_qp_full(*sh32, config=cfg))
     opt_fb_ms = host_ms(lambda: fwd_bwd(sh32, cfg, dev))
-    print(f"# phase 6: OptNet pattern: forward {opt_fwd_ms:.2f} ms/solve "
+    print(f"# phase 10: OptNet pattern: forward {opt_fwd_ms:.2f} ms/solve "
           f"({B / opt_fwd_ms * 1e3:.0f} QPs/s), forward+backward "
           f"{opt_fb_ms:.2f} ms/solve ({B / opt_fb_ms * 1e3:.0f} QPs/s) at "
           f"B={B} nz=nineq={NZ} f32, iterations "
           f"{int(sol_s.stats.iterations)}")
 
+    # This slice's paths end to end (host clock around a solve ending in
+    # synchronize, median of 5).
+    paths_ms = {}
+    for key, arrs, config, its_ in (
+            ("path1_eq_batched", eq32, cfg, its1),
+            ("path2_sudoku", sud32, cfg_sud, its2)):
+        paths_ms[key] = dict(
+            forward_ms=report(f"{key} forward", host_ms(
+                lambda: qt.solve_qp_full(*arrs, config=config)), its_),
+            forward_backward_ms=report(f"{key} forward+backward", host_ms(
+                lambda: grads_of(arrs, config, dev))))
+    paths_ms["path3_direct_x"] = dict(
+        resid_every_1_forward_ms=report("path3 resid_every=1 forward",
+                                        host_ms(lambda: qt.solve_qp_full(
+                                            *f32, config=cfg_r1)), its3),
+        coeff_x_false_forward_ms=report("path3 coeff_x=False forward",
+                                        host_ms(lambda: qt.solve_qp_full(
+                                            *f32, config=cfg_cx)), its3c),
+        warm_forward_ms=report("path3 warm-started re-solve", host_ms(
+            lambda: qt.solve_qp_full(*warm32, config=cfg_cx, init=init)),
+            its3w),
+        cold_forward_ms=report("path3 the same re-solve, cold", host_ms(
+            lambda: qt.solve_qp_full(*warm32, config=cfg_cx)), its3k))
+    for key, arrs_np in (("path4_f64_default", (Q, p, G, h)),
+                         ("path4_f64_default_eq", eq_np)):
+        d64 = tensors(arrs_np, torch.float64, dev)
+        paths_ms[key] = dict(
+            forward_ms=report(f"{key} forward", host_ms(
+                lambda: qt.solve_qp_full(*d64, config=cfg_d64)),
+                path_facts[key]["iterations"]),
+            forward_backward_ms=report(f"{key} forward+backward", host_ms(
+                lambda: grads_of(d64, cfg_d64, dev))))
+        del d64
+
     # Device time of one forward+backward by kernel (torch.profiler), and
-    # the share of the wall time the device was idle.
+    # the share of the wall time the device was idle: the neq = 0 main
+    # path and path 1.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fwd_bwd(f32, cfg, dev)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # Device-side events only: a CPU-side record (an aten op, the autograd
-    # Function) also carries the device time of the kernels it launched.
-    by_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                        for e in prof.key_averages()
-                        if e.device_type == DeviceType.CUDA
-                        and e.self_device_time_total > 0), reverse=True)
-    busy_ms = sum(t for t, _, _ in by_kernel)
-    trace = {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
-             "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
-             else None,
-             "top": [dict(ms=t, count=c, name=k[:80])
-                     for t, c, k in by_kernel[:8]]}
-    if busy_ms:
-        print(f"# phase 6: trace of one forward+backward: wall "
-              f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
-              f"{trace['device_idle_share']:.3f}")
-        for t, c, k in by_kernel[:8]:
-            print(f"#   {t:9.3f} ms  x{c:<4d} {k[:90]}")
-    else:
-        print("# phase 6: trace: the profiler saw no device time "
-              "(not measured)")
+    def trace_of(tag, fn):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        # Device-side events only: a CPU-side record (an aten op, the
+        # autograd Function) also carries the device time of the kernels
+        # it launched.
+        by_kernel = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA
+                            and e.self_device_time_total > 0), reverse=True)
+        busy_ms = sum(t for t, _, _ in by_kernel)
+        out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms or None,
+               "device_idle_share": (1 - busy_ms / wall_ms) if busy_ms
+               else None,
+               "top": [dict(ms=t, count=c, name=k[:80])
+                       for t, c, k in by_kernel[:8]]}
+        if busy_ms:
+            print(f"# phase 10: trace of one forward+backward ({tag}): "
+                  f"wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
+                  f"idle share {out['device_idle_share']:.3f}")
+            for t, c, k in by_kernel[:8]:
+                print(f"#   {t:9.3f} ms  x{c:<4d} {k[:90]}")
+        else:
+            print(f"# phase 10: trace ({tag}): the profiler saw no device "
+                  "time (not measured)")
+        return out
 
-    # ---- phase 7: result lines ----
+    trace = trace_of("neq = 0 main path", lambda: fwd_bwd(f32, cfg, dev))
+    trace1 = trace_of("path 1", lambda: grads_of(eq32, cfg, dev))
+
+    # ---- phase 11: result lines ----
+    for key in paths_ms:
+        paths_ms[key].update(launches=path_launches[key],
+                             **path_facts[key])
+    paths_ms["path1_eq_batched"]["trace"] = trace1
     print(json.dumps({"kernels": rows, "end_to_end": {
         "forward_ms": fwd_ms, "forward_backward_ms": fb_ms,
         "forward_qps": B / fwd_ms * 1e3,
@@ -453,7 +1100,8 @@ def main():
         "card": smi, "trace": trace,
         "optnet": {"forward_ms": opt_fwd_ms,
                    "forward_backward_ms": opt_fb_ms,
-                   "iterations": int(sol_s.stats.iterations)}}}))
+                   "iterations": int(sol_s.stats.iterations)},
+        "paths": paths_ms}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,17 +4,20 @@ A batched differentiable QP layer (the OptNet solver) whose hot loop runs
 in hand-written CUDA kernels on an H100. ``qpth_tpu`` (JAX) stays the
 reference; this package imports neither JAX nor ``qpth_tpu``.
 
-Ported so far: dense inequality-constrained QPs (neq = 0), the forward
-solve and the implicit-KKT backward, in the float32 default configuration
-(and float64 with ``solve_method="inverse"``, ``resid_every`` > 1). Entry
-points run on CUDA unless called with ``device="cpu"``.
+Ported so far: the dense QP layer with inequality and equality
+constraints, the forward solve and the implicit-KKT backward, in the
+float32 and the float64 default configurations (inverse and substitution
+mode, tracked and untracked residuals, warm starts), and the closed-form
+solver for nineq = 0. Entry points run on CUDA unless called with
+``device="cpu"``.
 """
 
 from .config import (KKTSolver, QPSolution, QPSolutionLow, QPSolvers,
                      SolverConfig, SolveStats)
 from .convert import factors_from_numpy
 from .ops.kkt import KKTFactors
-from .qp import QPFunction, prefactor_qp, solve_qp, solve_qp_full
+from .qp import (QPFunction, prefactor_qp, solve_qp, solve_qp_eq,
+                 solve_qp_full)
 
 __all__ = [
     "KKTFactors",
@@ -28,5 +31,6 @@ __all__ = [
     "factors_from_numpy",
     "prefactor_qp",
     "solve_qp",
+    "solve_qp_eq",
     "solve_qp_full",
 ]

@@ -1,24 +1,34 @@
 """Batched Mehrotra predictor-corrector primal-dual interior-point method
 (counterpart of ``qpth_tpu/core/pdipm.py``).
 
-Ported branch: the one the float32 defaults take, neq = 0, cached-product
-("fast") algebra with tracked residuals (``resid_every`` k > 1),
-coefficient-tracked x ("x-free" iterations) and one fused kernel per
-iteration (kernel B, ``ops/cuda/kernels.py::ipm_step_xfree``). A float64
-call with ``solve_method="inverse"`` and ``resid_every`` > 1 runs the same
-branch. What it keeps from the JAX solver:
+Ported: the whole dense loop with the partial-Cholesky KKT strategy, with
+and without equality constraints, in the branches of the JAX solver:
 
-* init solve with d = 1 (in semantic coordinates) through the cached
-  products, then the per-lane shift so s >= 1 and z >= 1, and the
-  fail-soft restart of lanes whose init solve gave NaN;
-* exact residual scores at checkpoints (every ``resid_every`` iterations),
-  (1 - alpha)-scaled norms in between, and an exact rescore of the final
-  iterate after the loop;
-* element-wise best-iterate tracking; the not-improved window, per lane
-  and latched with a nonzero improve margin, global with margin 0;
-* equilibration: the iterates live in ``factors.scaling`` coordinates, the
-  scoring and the init shift in ``factors.sem_scaling`` coordinates, and
-  the result and stats come back in original coordinates.
+* ``fast``: inverse-mode factors; the RHS and back-substitution products
+  fold into the cached Q^-1 G^T / Q^-1 A^T / S11 products. Otherwise
+  (substitution mode, the float64 default) every iteration computes the
+  residual vectors and solves through ``ops/kkt.py::solve_kkt``.
+* ``track`` (fast, ``resid_every`` != 1): exact residual scores at
+  checkpoints, (1 - alpha)-scaled norms in between, an exact rescore of the
+  final iterate after the loop.
+* the fused iteration, one kernel per iteration where it fits a thread
+  block: ``ipm_step_eq`` with equality constraints, ``ipm_step_xfree``
+  (tracked, coefficient-tracked x) or ``ipm_step`` (the direct x
+  recurrence: ``resid_every=1`` or ``coeff_x=False``) without. Otherwise
+  the composed step: kernel A's factor with its first solve, then
+  ``inv_solve`` for the corrector and each Gondzio correction, with the
+  per-lane adaptive regularization of the fail-soft path.
+* ``xfree``: x carried as recurrence coefficients [w | v | e | c] with
+  x = e x0 - c Q^-1 p - Q^-1 G^T w - Q^-1 A^T v, rebuilt at checkpoints.
+
+What it keeps from the JAX solver beside that: the init solve with d = 1
+(in semantic coordinates), the per-lane shift so s >= 1 and z >= 1, warm
+starts clipped at ``warm_start_min``, the fail-soft restart of lanes whose
+init solve gave NaN; element-wise best-iterate tracking; the not-improved
+window, per lane and latched with a nonzero improve margin, global with
+margin 0; equilibration: the iterates live in ``factors.scaling``
+coordinates, the scoring and the init shift in ``factors.sem_scaling``
+coordinates, and the result and stats come back in original coordinates.
 
 The JAX loop is a ``lax.while_loop`` on the device. Here the loop is a
 Python ``for`` with one host read of ``done`` per iteration, as upstream
@@ -31,17 +41,22 @@ import warnings
 
 import torch
 
+from .. import scaling as scaling_mod
 from ..config import (KKTSolver, QPSolution, QPSolvers, SolverConfig,
                       SolveStats, resolve_refine_steps)
 from ..ops import kkt as kkt_ops
 from ..ops.linalg import bmv, btmv
 
 
+def _is_f64(dtype) -> bool:
+    return torch.empty((), dtype=dtype).element_size() >= 8
+
+
 def resolve_resid_every(config: SolverConfig, dtype) -> int:
     """``SolverConfig.resid_every``: None = 1 at float64, 7 below."""
     if config.resid_every is not None:
         return config.resid_every
-    return 1 if torch.empty((), dtype=dtype).element_size() >= 8 else 7
+    return 1 if _is_f64(dtype) else 7
 
 
 def check_config(config: SolverConfig, dtype) -> None:
@@ -53,14 +68,6 @@ def check_config(config: SolverConfig, dtype) -> None:
     if config.solver == QPSolvers.CPU_ORACLE:
         raise NotImplementedError(
             "solver=QPSolvers.CPU_ORACLE — ROADMAP.md §1 item 12")
-    kkt_ops.resolve_prefactor_modes(config, dtype)
-    if resolve_resid_every(config, dtype) == 1:
-        raise NotImplementedError(
-            "resid_every=1 (untracked residuals, including the float64 "
-            "default) — ROADMAP.md §1 item 7")
-    if config.coeff_x is False:
-        raise NotImplementedError(
-            "coeff_x=False (direct x recurrence) — ROADMAP.md §1 item 10")
     if resolve_refine_steps(config, dtype)[0] > 0:
         raise NotImplementedError(
             "refine_steps > 0 (mixed-precision refinement) — "
@@ -73,15 +80,27 @@ def check_config(config: SolverConfig, dtype) -> None:
             "verbose >= 1 (per-iteration prints) — ROADMAP.md §1 item 14")
 
 
-def solve(Q, p, G, h, factors: kkt_ops.KKTFactors,
-          config: SolverConfig) -> QPSolution:
-    """Run the batched IPM on one device. Q (bQ, nz, nz) and G
-    (bG, nineq, nz) carry minimal batch dims; p (B, nz) and h (B, nineq)
-    are full-batch. All parameters are in original (user) coordinates;
-    ``factors`` comes from ``kkt_ops.pre_factor_kkt`` (possibly of the
-    equilibrated problem, see ``factors.scaling``)."""
+def _step_to_boundary(v, dv):
+    """Per-lane max step with v + a dv >= 0 (NaN propagates)."""
+    inf = torch.full_like(v, float("inf"))
+    return torch.where(dv < 0, -v / dv, inf).amin(dim=-1)
+
+
+def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
+          config: SolverConfig, init=None) -> QPSolution:
+    """Run the batched IPM on one device. Matrices carry minimal batch dims
+    (1 when shared); p (B, nz), h (B, nineq) and b (B, neq) are full-batch;
+    A and b are None when neq == 0. All parameters are in original (user)
+    coordinates; ``factors`` comes from ``kkt_ops.pre_factor_kkt`` (possibly
+    of the equilibrated problem, see ``factors.scaling``).
+
+    ``init``: optional warm start (x, s, z, y), for instance the previous
+    receding-horizon solution; s and z are clipped to
+    ``config.warm_start_min`` to restore strict interiority. y may be None
+    when neq == 0."""
     B, nz = p.shape
     nineq = G.shape[-2]
+    neq = A.shape[-2] if A is not None else 0
     dtype, device = p.dtype, p.device
 
     sc = factors.scaling
@@ -90,125 +109,357 @@ def solve(Q, p, G, h, factors: kkt_ops.KKTFactors,
         # Iterate coordinates (sc) vs semantic coordinates (sem): see the
         # JAX solver. In the probe's light branch sc is the identity.
         sem = factors.sem_scaling if factors.sem_scaling is not None else sc
-        p_, h_ = p * (sc.c * sc.E), h * sc.RG
+        p_, h_, b_ = scaling_mod.scale_vecs(p, h, b, sc)
+        w_rx, w_rz, w_ry = sc.c * sc.E, sc.RG, sc.RA
         c_flat = sc.c[..., 0]
         m_x, m_s, m_z = sc.E, 1.0 / sc.RG, sc.RG / sc.c
-        sw_rx, sw_rz = sem.c * sem.E, sem.RG
+        m_y = (sc.RA / sc.c) if sc.RA is not None else None
+        sw_rx, sw_rz, sw_ry = sem.c * sem.E, sem.RG, sem.RA
         sem_c = sem.c[..., 0]
         ws_s = m_s * sem.RG
         ws_z = m_z * (sem.c / sem.RG)
+        if init is not None:
+            init = scaling_mod.scale_point(*init, sc)
     else:
-        p_, h_ = p, h
+        p_, h_, b_ = p, h, b
 
-    def to_orig(x, s, z):
+    def to_orig(x, s, z, y):
         if not scaled:
-            return x, s, z
-        return x * m_x, s * m_s, z * m_z
+            return x, s, z, y
+        return x * m_x, s * m_s, z * m_z, (y * m_y) if neq > 0 else y
 
     improve_margin = config.improve_margin
     if improve_margin is None:
-        improve_margin = 0.0 if torch.empty(
-            (), dtype=dtype).element_size() >= 8 else 1e-3
+        improve_margin = 0.0 if _is_f64(dtype) else 1e-3
     per_lane_term = improve_margin > 0.0
     resid_every = resolve_resid_every(config, dtype)
 
     backend = kkt_ops.resolve_backend(dtype, nineq, device)
     fs = backend.prepare(factors)
-    invQ_p = kkt_ops.apply_invQ(fs, p_)
-    G_invQ_p = btmv(fs.invQ_GT, p_)
-    q = -(h_ + G_invQ_p)
-    q_t = backend.prepare_vec(q)
 
-    # ---- Init: the fast predictor at (x, z) = 0 with d = 1 in semantic
-    # coordinates (d_it = ws_s / ws_z in iterate coordinates). ----
-    ones_m = (ws_s / ws_z if scaled
-              else torch.ones((), dtype=dtype, device=device))
-    ones_m = ones_m.expand(B, nineq).to(dtype).contiguous()
-    zeros_m = torch.zeros((B, nineq), dtype=dtype, device=device)
-    _, dz0 = backend.factor_solve_rz(fs.R, ones_m, q, zeros_m)
-    s = (-zeros_m - dz0) / ones_m
-    z = dz0
-    x = -invQ_p - bmv(fs.invQ_GT, zeros_m + z)
+    fast = fs.invQ_GT is not None
+    track = fast and resid_every != 1
+    if fast:
+        invQ_p = kkt_ops.apply_invQ(fs, p_)
+        G_invQ_p = btmv(fs.invQ_GT, p_)
+        A_invQ_p = btmv(fs.invQ_AT, p_) if neq > 0 else None
+        q = -(h_ + G_invQ_p)
+    else:
+        # The substitution-mode solves read the matrices of the iterate
+        # coordinates.
+        Qm = scaling_mod.scale_Q(Q, sc) if scaled else Q
+        Gm = scaling_mod.scale_G(G, sc) if scaled else G
+        Am = scaling_mod.scale_A(A, sc) if scaled else A
 
-    def shift_pos(v, w):
-        vs = v * w if scaled else v
-        mn = vs.amin(dim=-1, keepdim=True)
-        vs = torch.where(mn < 0, vs - mn + 1.0, vs)
-        return vs / w if scaled else vs
+    # The fused iteration, where one QP's working set fits a thread block.
+    use_fused = use_fused_eq = False
+    if fast:
+        want_xfree = track and config.coeff_x is not False
+        if neq == 0:
+            use_fused = kkt_ops.fused_step_supported(
+                device, dtype, nineq, 0 if want_xfree else nz)
+        else:
+            use_fused_eq = kkt_ops.fused_step_supported(
+                device, dtype, nineq, nz, neq)
+    # Coefficient-tracked x: tracked mode only (the reference-parity mode
+    # keeps the reference's own x recurrence); the fused step with equality
+    # constraints owns its x and y updates.
+    xfree = (fast and track and not use_fused_eq
+             and config.coeff_x is not False)
+    if use_fused or use_fused_eq:
+        q_t = backend.prepare_vec(q)
+        if not xfree:
+            ip_t = backend.prepare_vec(invQ_p)
+    if use_fused_eq:
+        rb_t = backend.prepare_vec(b_ + A_invQ_p)
 
-    s = shift_pos(s, ws_s if scaled else None)
-    z = shift_pos(z, ws_z if scaled else None)
+    def fast_predictor(z, y, d):
+        """Factor and predictor solve through the cached products; returns
+        (fac, ds, dz, dy). GiGT z = R z + S21 (W z), so the R z part folds
+        into the factor kernel and only the S21 / W products stay outside.
+        dx is assembled once per iteration in fast_combined_dx."""
+        q_ = q
+        if neq > 0:
+            r1 = b_ + A_invQ_p + btmv(fs.S21, z) + bmv(fs.S11, y)
+            u = bmv(fs.invS11, -r1)
+            q_ = q - bmv(fs.S21, bmv(fs.W, z) + y + u)
+        fac, dz = backend.factor_solve_rz(fs.R, d, q_, z)
+        dy = (u - bmv(fs.W, dz)) if neq > 0 else None
+        return fac, (-z - dz) / d, dz, dy
 
-    # Fail-soft init: a lane whose init solve gave NaN restarts from the
-    # neutral interior point (0, 1, 1) (the 1s in semantic coordinates).
-    # The JAX solver also pre-arms an adaptive regularization for such a
-    # lane, but the fused step never reads it, so it is not carried here.
-    bad0 = (torch.isnan(x).any(-1) | torch.isnan(s).any(-1)
-            | torch.isnan(z).any(-1)).unsqueeze(-1)
+    def fast_corrector(fac, rs_c, d):
+        """Corrector solve (RHS zero except rs): (ds, dz, dy)."""
+        dz = backend.solve2(fac, -(rs_c / d))
+        dy = -bmv(fs.W, dz) if neq > 0 else None
+        return (-rs_c - dz) / d, dz, dy
+
+    def fast_combined_dx(x, z, y, dz, dy):
+        """dx = -(x + Q^-1 p) - Q^-1 G^T (z + dz) - Q^-1 A^T (y + dy)."""
+        dx = -(x + invQ_p) - bmv(fs.invQ_GT, z + dz)
+        if neq > 0:
+            dx = dx - bmv(fs.invQ_AT, y + dy)
+        return dx
+
+    def kkt_factor_solve(d, rx, rs, rz, ry):
+        """The factor of T and the first solve on it in one kernel; returns
+        (fac, dx, ds, dz, dy)."""
+        rhs_T, u = kkt_ops.prepare_rhs_kkt(fs, d, Gm, Am, rx, rs, rz, ry)
+        fac, dz = backend.factor_solve(fs.R, d, rhs_T)
+        return (fac,) + kkt_ops.backsub_kkt(fs, dz, u, d, Gm, Am, rx, rs)
+
+    def kkt_solve(fac, d, rx, rs, rz, ry):
+        return kkt_ops.solve_kkt(fs, fac, d, Gm, Am, rx, rs, rz, ry,
+                                 solve2=backend.solve2)
+
     zero = torch.zeros((), dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
-    x = torch.where(bad0, zero, x)
-    s = torch.where(bad0, 1.0 / ws_s if scaled else one, s)
-    z = torch.where(bad0, 1.0 / ws_z if scaled else one, z)
 
-    # x-free mode: the x carry is the packed coefficient vector
-    # [w (nineq) | e | c] with x = e x0 - c Q^-1 p - Q^-1 G^T w.
-    pw = nineq
-    x0_anchor = x
+    if init is None:
+        # ---- Init: solve with d = 1, RHS (p, 0, -h, -b); "d = 1" in
+        # semantic coordinates (d_it = ws_s / ws_z in iterate coordinates).
+        ones_m = (ws_s / ws_z if scaled else one)
+        ones_m = ones_m.expand(B, nineq).to(dtype).contiguous()
+        if fast:
+            # The fast predictor at (x, z, y) = 0 with d = 1.
+            zeros_n = torch.zeros((B, nz), dtype=dtype, device=device)
+            zeros_m = torch.zeros((B, nineq), dtype=dtype, device=device)
+            y0 = (torch.zeros((B, neq), dtype=dtype, device=device)
+                  if neq > 0 else None)
+            _, s, z, y = fast_predictor(zeros_m, y0, ones_m)
+            x = fast_combined_dx(zeros_n, zeros_m, y0, z, y)
+        else:
+            _, x, s, z, y = kkt_factor_solve(ones_m, p_, None, -h_,
+                                             -b_ if neq > 0 else None)
 
-    def x_of(xp):
-        return (xp[:, pw:pw + 1] * x0_anchor - xp[:, pw + 1:] * invQ_p
-                - bmv(fs.invQ_GT, xp[:, :nineq]))
+        def shift_pos(v, w):
+            vs = v * w if scaled else v
+            mn = vs.amin(dim=-1, keepdim=True)
+            vs = torch.where(mn < 0, vs - mn + 1.0, vs)
+            return vs / w if scaled else vs
 
-    def xp_step(xp, a_l, zeta):
-        """One damped step on the packed coefficients (a_l = 0 on frozen
-        lanes, whose zeta is masked: an exact no-op)."""
-        a = a_l.unsqueeze(-1)
-        na = 1.0 - a
-        return torch.cat([na * xp[:, :nineq] + a * zeta,
-                          na * xp[:, pw:pw + 1],
-                          na * xp[:, pw + 1:] + a], dim=1)
+        s = shift_pos(s, ws_s if scaled else None)
+        z = shift_pos(z, ws_z if scaled else None)
+    else:
+        x, s, z, y = init
+        # Interiority clip in semantic coordinates.
+        if scaled:
+            s = torch.maximum(s, config.warm_start_min / ws_s)
+            z = torch.maximum(z, config.warm_start_min / ws_z)
+        else:
+            s = torch.clamp(s, min=config.warm_start_min)
+            z = torch.clamp(z, min=config.warm_start_min)
+    if y is None:
+        y = torch.zeros((B, 0), dtype=dtype, device=device)
 
-    x = torch.cat([torch.zeros((B, pw), dtype=dtype, device=device),
-                   torch.ones((B, 1), dtype=dtype, device=device),
-                   torch.zeros((B, 1), dtype=dtype, device=device)], dim=1)
+    # Fail-soft init: a lane whose init solve gave NaN restarts from the
+    # neutral interior point (0, 1, 1, 0) (the 1s in semantic coordinates)
+    # with the adaptive regularization of the composed step pre-armed.
+    bad0 = (torch.isnan(x).any(-1) | torch.isnan(s).any(-1)
+            | torch.isnan(z).any(-1) | torch.isnan(y).any(-1))
+    b0 = bad0.unsqueeze(-1)
+    x = torch.where(b0, zero, x)
+    s = torch.where(b0, 1.0 / ws_s if scaled else one, s)
+    z = torch.where(b0, 1.0 / ws_z if scaled else one, z)
+    y = torch.where(b0, zero, y)
+    reg = torch.where(bad0, zero + config.ir_eps, zero)
+
+    if xfree:
+        pw = nineq + neq
+        x0_anchor = x
+
+        def x_of(xp):
+            xr = (xp[:, pw:pw + 1] * x0_anchor - xp[:, pw + 1:] * invQ_p
+                  - bmv(fs.invQ_GT, xp[:, :nineq]))
+            if neq > 0:
+                xr = xr - bmv(fs.invQ_AT, xp[:, nineq:pw])
+            return xr
+
+        def xp_step(xp, a_l, zeta, zy):
+            """One damped step on the packed coefficients; zeta = z + dz,
+            zy = y + dy (None when neq == 0). a_l = 0 on frozen lanes,
+            whose anchors are masked: an exact no-op."""
+            a = a_l.unsqueeze(-1)
+            na = 1.0 - a
+            parts = [na * xp[:, :nineq] + a * zeta]
+            if neq > 0:
+                parts.append(na * xp[:, nineq:pw] + a * zy)
+            parts += [na * xp[:, pw:pw + 1], na * xp[:, pw + 1:] + a]
+            return torch.cat(parts, dim=1)
+
+        x = torch.cat([torch.zeros((B, pw), dtype=dtype, device=device),
+                       torch.ones((B, 1), dtype=dtype, device=device),
+                       torch.zeros((B, 1), dtype=dtype, device=device)],
+                      dim=1)
+
+    def mu_of(s, z):
+        return torch.abs((s * z).sum(dim=-1) / nineq)
 
     def mu_sel_of(mu):
         return (mu / c_flat) * sem_c if scaled else mu
 
-    def exact_pri_dual(x, s, z):
+    def norm(v):
+        return torch.linalg.vector_norm(v, dim=-1)
+
+    def exact_pri_dual(x, s, z, y):
         """(pri, dual, pri_o, dual_o) from scratch, reading the original
         matrices; pri/dual in semantic coordinates."""
-        xo, so, zo = to_orig(x, s, z)
+        xo, so, zo, yo = to_orig(x, s, z, y)
         rx = bmv(Q, xo) + p + btmv(G, zo)
         rz = bmv(G, xo) + so - h
-        pri_o = torch.linalg.vector_norm(rz, dim=-1)
-        dual_o = torch.linalg.vector_norm(rx, dim=-1)
+        pri_o = norm(rz)
+        if neq > 0:
+            rx = rx + btmv(A, yo)
+            ry = bmv(A, xo) - b
+            pri_o = pri_o + norm(ry)
+        dual_o = norm(rx)
         if not scaled:
             return pri_o, dual_o, pri_o, dual_o
-        return (torch.linalg.vector_norm(rz * sw_rz, dim=-1),
-                torch.linalg.vector_norm(rx * sw_rx, dim=-1), pri_o, dual_o)
+        pri_s = norm(rz * sw_rz)
+        if neq > 0:
+            pri_s = pri_s + norm(ry * sw_ry)
+        return pri_s, norm(rx * sw_rx), pri_o, dual_o
+
+    def residuals(x, s, z, y):
+        """Residual vectors in iterate coordinates (the RHS of the
+        substitution-mode solves) and the norms in both coordinate
+        systems: (rx, rz, ry, pri, dual, pri_o, dual_o)."""
+        rx = bmv(Qm, x) + p_ + btmv(Gm, z)
+        ry = None
+        if neq > 0:
+            rx = rx + btmv(Am, y)
+            ry = bmv(Am, x) - b_
+        rz = bmv(Gm, x) + s - h_
+        if not scaled:
+            pri = norm(rz) + (norm(ry) if neq > 0 else 0.0)
+            dual = norm(rx)
+            return rx, rz, ry, pri, dual, pri, dual
+        rz_o, rx_o = rz / w_rz, rx / w_rx
+        pri_o, pri = norm(rz_o), norm(rz_o * sw_rz)
+        if neq > 0:
+            ry_o = ry / w_ry
+            pri_o = pri_o + norm(ry_o)
+            pri = pri + norm(ry_o * sw_ry)
+        return rx, rz, ry, pri, norm(rx_o * sw_rx), pri_o, norm(rx_o)
+
+    def composed_step(x, s, z, y, reg, mu, rx, rz, ry):
+        """One predictor-corrector step from kernel A's factor and
+        ``inv_solve``; returns the new state, the applied per-lane step (0
+        on frozen lanes) and the regularization for the next iteration."""
+        d = z / s
+        # A lane whose last direction was NaN re-factors T + reg I, as the
+        # exact elementwise transform d' = d / (1 + reg d). reg = 0 leaves
+        # a healthy lane bit-identical.
+        d = d / (1.0 + reg.unsqueeze(-1) * d)
+        if fast:
+            fac, ds_a, dz_a, dy_a = fast_predictor(z, y, d)
+        else:
+            fac, dx_a, ds_a, dz_a, dy_a = kkt_factor_solve(d, rx, z, rz, ry)
+
+        def step_min(dz_, ds_):
+            return torch.minimum(_step_to_boundary(z, dz_),
+                                 _step_to_boundary(s, ds_))
+
+        alpha = torch.minimum(step_min(dz_a, ds_a), one).unsqueeze(-1)
+        t1 = ((s + alpha * ds_a) * (z + alpha * dz_a)).sum(dim=-1)
+        t2 = (s * z).sum(dim=-1)
+        sig = (t1 / t2) ** 3
+
+        rs_c = ((-mu * sig).unsqueeze(-1) + ds_a * dz_a) / s
+        if fast:
+            ds_c, dz_c, dy_c = fast_corrector(fac, rs_c, d)
+            dx = None                  # assembled after the corrections
+        else:
+            dx_c, ds_c, dz_c, dy_c = kkt_solve(fac, d, None, rs_c, None,
+                                               None)
+            dx = dx_a + dx_c
+        ds, dz = ds_a + ds_c, dz_a + dz_c
+        dy = (dy_a + dy_c) if neq > 0 else None
+
+        # Gondzio centrality corrections, accepted per lane only when the
+        # step lengthens.
+        for _ in range(config.n_correctors):
+            a_g = torch.minimum(step_min(dz, ds), one)
+            a_t = torch.minimum(1.08 * a_g + 0.08, one).unsqueeze(-1)
+            v = (s + a_t * ds) * (z + a_t * dz)
+            mu_t = (sig * mu).unsqueeze(-1)
+            rs_g = (v - torch.minimum(torch.maximum(v, 0.1 * mu_t),
+                                      10.0 * mu_t)) / s
+            if fast:
+                dds, ddz, ddy = fast_corrector(fac, rs_g, d)
+            else:
+                ddx, dds, ddz, ddy = kkt_solve(fac, d, None, rs_g, None,
+                                               None)
+            dz_n, ds_n = dz + ddz, ds + dds
+            a_n = torch.minimum(step_min(dz_n, ds_n), one)
+            acc = (a_n > a_g).unsqueeze(-1)
+            dz = torch.where(acc, dz_n, dz)
+            ds = torch.where(acc, ds_n, ds)
+            if neq > 0:
+                dy = torch.where(acc, dy + ddy, dy)
+            if not fast:
+                dx = torch.where(acc, dx + ddx, dx)
+
+        if fast and not xfree:
+            dx = fast_combined_dx(x, z, y, dz, dy)
+        alpha = torch.minimum(0.999 * step_min(dz, ds), one)
+        # Freeze a lane whose factorization failed: alpha and the
+        # directions both, since 0 * NaN is NaN. In xfree mode dx is never
+        # formed; it is NaN exactly when dz is.
+        lane_bad = torch.isnan(ds).any(-1) | torch.isnan(dz).any(-1)
+        if not xfree:
+            lane_bad = lane_bad | torch.isnan(dx).any(-1)
+        if neq > 0:
+            lane_bad = lane_bad | torch.isnan(dy).any(-1)
+        mask = lane_bad.unsqueeze(-1)
+        alpha = torch.where(mask, zero, alpha.unsqueeze(-1))
+        if xfree:
+            zeta = z + torch.where(mask, zero, dz)
+            zy = (y + torch.where(mask, zero, dy)) if neq > 0 else None
+            x = xp_step(x, alpha[:, 0], zeta, zy)
+        else:
+            x = x + alpha * torch.where(mask, zero, dx)
+        s = s + alpha * torch.where(mask, zero, ds)
+        z = z + alpha * torch.where(mask, zero, dz)
+        if neq > 0:
+            y = y + alpha * torch.where(mask, zero, dy)
+        # Failed lanes start at ir_eps and grow 8x per repeat failure;
+        # healthy lanes keep their shift.
+        reg = torch.where(lane_bad,
+                          torch.clamp(reg * 8.0, min=config.ir_eps), reg)
+        return x, s, z, y, alpha[:, 0], reg
 
     inf = torch.full((B,), float("inf"), dtype=dtype, device=device)
-    best_x, best_s, best_z = x, s, z
+    best_x, best_s, best_z, best_y = x, s, z, y
     best_resids, best_resids_o = inf, inf
     mu = torch.zeros((B,), dtype=dtype, device=device)
     n_not = torch.zeros((B,) if per_lane_term else (), dtype=torch.int32,
                         device=device)
     lane_done = torch.zeros((B,), dtype=torch.bool, device=device)
     pri = dual = torch.zeros((B,), dtype=dtype, device=device)
-    inc = max(resid_every, 1)
+    # The not-improved window advances once per scoring event: every
+    # iteration normally, every checkpoint (by resid_every) in tracked mode.
+    inc = max(resid_every, 1) if track else 1
     iterations = 0
+    rx = rz = ry = None
 
     for it in range(config.max_iter):
         iterations = it + 1
-        mu = torch.abs((s * z).sum(dim=-1) / nineq)
-        exact_now = (it == 0) if resid_every == 0 else it % resid_every == 0
-        if exact_now:
-            pri, dual, pri_o, dual_o = exact_pri_dual(x_of(x), s, z)
+        mu = mu_of(s, z)
+        if track:
+            exact_now = ((it == 0) if resid_every == 0
+                         else it % resid_every == 0)
+            if exact_now:
+                pri, dual, pri_o, dual_o = exact_pri_dual(
+                    x_of(x) if xfree else x, s, z, y)
+        else:
+            exact_now = True
+            if fast:
+                pri, dual, pri_o, dual_o = exact_pri_dual(x, s, z, y)
+            else:
+                rx, rz, ry, pri, dual, pri_o, dual_o = residuals(x, s, z, y)
         resids = pri + dual + nineq * mu_sel_of(mu)
 
-        # Only checkpoint (exactly scored) iterates enter the bookkeeping.
+        # Only exactly scored iterates enter the bookkeeping.
         if exact_now:
             resids_o = (pri_o + dual_o + nineq * (mu / c_flat) if scaled
                         else resids)
@@ -222,6 +473,7 @@ def solve(Q, p, G, h, factors: kkt_ops.KKTFactors,
             best_x = torch.where(imp, x, best_x)
             best_s = torch.where(imp, s, best_s)
             best_z = torch.where(imp, z, best_z)
+            best_y = torch.where(imp, y, best_y)
             if per_lane_term:
                 n_not = torch.where(improved, 0, n_not + inc)
             else:
@@ -231,37 +483,53 @@ def solve(Q, p, G, h, factors: kkt_ops.KKTFactors,
             window_done = lane_done.all()
         else:
             window_done = n_not >= config.not_improved_lim
-        # The current tracked score counts too, so a solve converging
-        # between checkpoints exits promptly.
-        max_best = torch.minimum(best_resids.amax(), resids.amax())
+        max_best = best_resids.amax()
+        if track:
+            # The current tracked score counts too, so a solve converging
+            # between checkpoints exits promptly.
+            max_best = torch.minimum(max_best, resids.amax())
         done = (window_done | (max_best < config.eps)
                 | (mu.amin() > config.mu_divergence))
         if bool(done):  # the one host read per iteration
             break
 
-        zeta, s, z, a_l = backend.fused_step_xfree(fs.R, s, z, q_t,
-                                                   config.n_correctors)
-        x = xp_step(x, a_l, zeta)
-        # The combined direction solves the Newton system exactly, so each
-        # feasibility residual norm scales by (1 - alpha).
-        pri, dual = pri * (1.0 - a_l), dual * (1.0 - a_l)
+        if use_fused and xfree:
+            zeta, s, z, a_l = backend.fused_step_xfree(
+                fs.R, s, z, q_t, config.n_correctors)
+            x = xp_step(x, a_l, zeta, None)
+        elif use_fused:
+            x, s, z, a_l = backend.fused_step(
+                fs.R, fs.invQ_GT, x, s, z, q_t, ip_t, config.n_correctors)
+        elif use_fused_eq:
+            x, s, z, y, a_l = backend.fused_step_eq(
+                fs, x, s, z, y, q_t, ip_t, rb_t, config.n_correctors)
+        else:
+            x, s, z, y, a_l, reg = composed_step(x, s, z, y, reg, mu, rx,
+                                                 rz, ry)
+        if track:
+            # The combined direction solves the Newton system exactly, so
+            # each feasibility residual norm scales by (1 - alpha).
+            pri, dual = pri * (1.0 - a_l), dual * (1.0 - a_l)
 
-    x, best_x = x_of(x), x_of(best_x)
+    if xfree:
+        x, best_x = x_of(x), x_of(best_x)
 
-    # Exact rescore of the final iterate; it wins where it beats the
-    # recorded checkpoint best.
-    pri_f, dual_f, pri_fo, dual_fo = exact_pri_dual(x, s, z)
-    mu_f = torch.abs((s * z).sum(dim=-1) / nineq)
-    score_f = pri_f + dual_f + nineq * mu_sel_of(mu_f)
-    take1 = score_f < best_resids
-    take = take1.unsqueeze(-1)
-    if scaled:
-        score_fo = pri_fo + dual_fo + nineq * (mu_f / c_flat)
-        best_resids_o = torch.where(take1, score_fo, best_resids_o)
-    best_x = torch.where(take, x, best_x)
-    best_s = torch.where(take, s, best_s)
-    best_z = torch.where(take, z, best_z)
-    best_resids = torch.minimum(score_f, best_resids)
+    if track:
+        # Exact rescore of the final iterate; it wins where it beats the
+        # recorded checkpoint best.
+        pri_f, dual_f, pri_fo, dual_fo = exact_pri_dual(x, s, z, y)
+        mu_f = mu_of(s, z)
+        score_f = pri_f + dual_f + nineq * mu_sel_of(mu_f)
+        take1 = score_f < best_resids
+        take = take1.unsqueeze(-1)
+        if scaled:
+            score_fo = pri_fo + dual_fo + nineq * (mu_f / c_flat)
+            best_resids_o = torch.where(take1, score_fo, best_resids_o)
+        best_x = torch.where(take, x, best_x)
+        best_s = torch.where(take, s, best_s)
+        best_z = torch.where(take, z, best_z)
+        best_y = torch.where(take, y, best_y)
+        best_resids = torch.minimum(score_f, best_resids)
 
     if config.verbose >= 0:
         max_best = float(best_resids.amax())
@@ -283,7 +551,5 @@ def solve(Q, p, G, h, factors: kkt_ops.KKTFactors,
         stats = SolveStats(iterations=its, best_resids=best_resids, mu=mu,
                            converged=best_resids < config.eps)
 
-    bx, bs, bz = to_orig(best_x, best_s, best_z)
-    return QPSolution(z=bx, nu=torch.zeros((B, 0), dtype=dtype,
-                                           device=device),
-                      lam=bz, s=bs, stats=stats)
+    bx, bs, bz, by = to_orig(best_x, best_s, best_z, best_y)
+    return QPSolution(z=bx, nu=by, lam=bz, s=bs, stats=stats)

@@ -15,13 +15,17 @@ namespace qpth {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// m-vectors a kernel may keep in shared memory beside its two m x m tiles.
-// The Python wrappers use the same count in their fit predicate.
+// m-vectors a kernel may keep in shared memory beside its two m x m tiles,
+// and the neq-vectors of the equality-constrained step. The fused steps with
+// the direct x update also keep one nz-vector (dx). The Python wrappers use
+// the same counts in their fit predicate.
 constexpr int kSmemVectors = 8;
+constexpr int kSmemEqVectors = 4;
 
 template <typename T>
-__host__ __device__ constexpr size_t smem_bytes(int m) {
-  return (2 * size_t(m) * m + size_t(kSmemVectors) * m) * sizeof(T);
+__host__ __device__ constexpr size_t smem_bytes(int m, int nz = 0, int neq = 0) {
+  return (2 * size_t(m) * m + size_t(kSmemVectors) * m + size_t(nz) +
+          size_t(kSmemEqVectors) * neq) * sizeof(T);
 }
 
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
@@ -81,6 +85,21 @@ __device__ void smem_matvec(const T* M, const T* v, T* out, int m) {
   }
 }
 
+// out[i] = sum_c M[i][c] v[c] for a row-major rows x cols matrix M in device
+// memory, v and out in shared memory. One warp per row, its lanes on
+// consecutive addresses. The caller places the barriers.
+template <typename T>
+__device__ void gmem_matvec(const T* __restrict__ M, const T* v, T* out, int rows, int cols) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = warp; i < rows; i += kWarps) {
+    const T* row = M + size_t(i) * cols;
+    T acc = T(0);
+    for (int c = lane; c < cols; c += 32) acc += row[c] * v[c];
+    acc = warp_sum(acc);
+    if (lane == 0) out[i] = acc;
+  }
+}
+
 // Cholesky of T + diag(dinv) interleaved with the inverse of its factor
 // (the recurrence of the TPU kernel's _chol_inv_inplace):
 //   pivot step j:  isq = rsqrt(T[j][j] + dinv[j]),  L[k][j] = T[k][j] isq,
@@ -127,6 +146,12 @@ __device__ T apply_inv(const T* Gm, const T* r, T* w, int m) {
     for (int i = c; i < m; ++i) x += Gm[i * m + c] * w[i];
   __syncthreads();
   return x;
+}
+
+// Largest step a with v + a dv >= 0 for one coordinate.
+template <typename T>
+__device__ __forceinline__ T step_of(T v, T dv) {
+  return dv < T(0) ? -v / dv : inf_t<T>();
 }
 
 }  // namespace qpth

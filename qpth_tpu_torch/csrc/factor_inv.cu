@@ -6,9 +6,10 @@
 // (2 m^2 words: 80 KB at m = 100 in float32), so R is read from device
 // memory once and Linv written once.
 //
-// What bounds it on an H100: at B = 4096, m = 100 the bytes (R in, Linv out,
-// 328 MB) take >= 0.098 ms at 3.35 TB/s and the ~2/3 m^3 flops per QP
-// >= 0.041 ms at 67 TFLOP/s, so bytes bound it. This first version does not
+// What bounds it on an H100: at B = 4096, m = 100 the bytes (the triangle of
+// the symmetric R in, the dense Linv out, 247 MB) take >= 0.074 ms at
+// 3.35 TB/s and the ~2/3 m^3 flops per QP >= 0.041 ms at 67 TFLOP/s, so
+// bytes bound it. This first version does not
 // get near that: each of the m pivot steps is a dependent step behind two
 // block barriers, with 2 blocks resident per SM (shared memory bounds
 // occupancy). The design keeps every intermediate on chip (the factor L is

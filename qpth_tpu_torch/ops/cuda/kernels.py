@@ -1,5 +1,5 @@
-"""Wrappers of the port's two CUDA kernels, their plain PyTorch versions,
-and the launch counters.
+"""Wrappers of the port's CUDA kernels, their plain PyTorch versions, and
+the launch counters.
 
 Kernel A, ``factor_inv`` (``csrc/factor_inv.cu``), in three variants:
   * ``factor_inv(R, dinv)``            -> Linv = inv(chol(R + diag(dinv)))
@@ -7,10 +7,16 @@ Kernel A, ``factor_inv`` (``csrc/factor_inv.cu``), in three variants:
   * ``factor_inv(R, dinv, rhs, z)``    -> (Linv, T^-1 (rhs - R z))
 Kernel B, ``ipm_step_xfree`` (``csrc/ipm_step_xfree.cu``): one whole x-free
 Mehrotra iteration for neq = 0.
+``inv_solve`` (``csrc/inv_solve.cu``): x = Linv^T (Linv rhs), every further
+solve on a factor that kernel A made.
+``ipm_step`` (``csrc/ipm_step.cu``): one whole iteration for neq = 0 with
+the direct x update.
+``ipm_step_eq`` (``csrc/ipm_step_eq.cu``): one whole iteration with
+equality constraints (the S11/S21/W algebra, the y and x updates).
 
-Layout is batch-major throughout: R (bR, m, m) with bR in {1, B} (a shared
-R is read with batch stride 0), vectors (B, m), Linv (B, m, m) with row i
-of inv(L) in row i (lower triangular).
+Layout is batch-major throughout: matrices (b, rows, cols) with b in
+{1, B} (a shared matrix is read with batch stride 0), vectors (B, n), Linv
+(B, m, m) with row i of inv(L) in row i (lower triangular).
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel, and a failed build or launch
@@ -35,11 +41,14 @@ SMEM_LIMIT = 232_448
 #: m-vectors a kernel keeps in shared memory beside its two m x m tiles
 #: (``kSmemVectors`` in csrc/common.cuh).
 SMEM_VECTORS = 8
+#: neq-vectors of the equality-constrained step (``kSmemEqVectors``).
+SMEM_EQ_VECTORS = 4
 #: Threads per block (``kThreads`` in csrc/common.cuh): bounds m as well.
 THREADS = 256
 
 LAUNCHES = {"factor_inv": 0, "factor_inv_solve": 0,
-            "factor_inv_solve_rz": 0, "ipm_step_xfree": 0}
+            "factor_inv_solve_rz": 0, "ipm_step_xfree": 0, "inv_solve": 0,
+            "ipm_step": 0, "ipm_step_eq": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns: dict[str, object] = {}
@@ -50,13 +59,16 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def fits(m: int, dtype) -> bool:
-    """Whether one QP's m x m working set fits a thread block: two m x m
-    tiles plus SMEM_VECTORS m-vectors within 227 KB, and m <= THREADS.
-    float32: m <= 168; float64: m <= 118."""
+def fits(m: int, dtype, nz: int = 0, neq: int = 0) -> bool:
+    """Whether one QP's working set fits a thread block: two m x m tiles
+    plus SMEM_VECTORS m-vectors within 227 KB, and m <= THREADS (float32:
+    m <= 168; float64: m <= 118). The fused steps with the direct x update
+    (``ipm_step``, ``ipm_step_eq``) also keep one nz-vector and, with
+    equality constraints, SMEM_EQ_VECTORS neq-vectors; pass their ``nz``
+    and ``neq``. ``inv_solve`` keeps no tile: m <= THREADS alone."""
     elt = torch.empty((), dtype=dtype).element_size()
-    return (m <= THREADS
-            and (2 * m * m + SMEM_VECTORS * m) * elt <= SMEM_LIMIT)
+    words = 2 * m * m + SMEM_VECTORS * m + nz + SMEM_EQ_VECTORS * neq
+    return m <= THREADS and words * elt <= SMEM_LIMIT
 
 
 def _fn(stem: str, name: str, n_ptr: int, n_int: int):
@@ -70,28 +82,36 @@ def _fn(stem: str, name: str, n_ptr: int, n_int: int):
     return fn
 
 
-def _check(name, R, vecs, B, m):
+def _check(name, R, vecs, B, m, mats=(), more_vecs=(), nz=0, neq=0,
+           tiles=True):
+    """Device, dtype, shape and contiguity of a kernel's operands. ``R``
+    (1 or B, m, m) and ``vecs`` (B, m); ``mats`` as (tensor, rows, cols)
+    with batch 1 or B; ``more_vecs`` as (tensor, n) for (B, n) vectors;
+    ``tiles``: the kernel keeps the two m x m tiles in shared memory."""
     if R.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {R.device}")
     if R.dtype not in _SUFFIX:
         raise TypeError(f"{name}: dtype {R.dtype} not supported "
                         "(float32 or float64)")
-    if R.dim() != 3 or R.shape[1:] != (m, m) or R.shape[0] not in (1, B):
-        raise ValueError(f"{name}: R must be (1 or {B}, {m}, {m}), "
-                         f"got {tuple(R.shape)}")
-    for v in (R,) + vecs:
+    for M, rows, cols in ((R, m, m),) + tuple(mats):
+        if (M.dim() != 3 or M.shape[1:] != (rows, cols)
+                or M.shape[0] not in (1, B)):
+            raise ValueError(f"{name}: matrix must be (1 or {B}, {rows}, "
+                             f"{cols}), got {tuple(M.shape)}")
+    for v, n in tuple((v, m) for v in vecs) + tuple(more_vecs):
+        if v.shape != (B, n):
+            raise ValueError(f"{name}: vector must be ({B}, {n}), "
+                             f"got {tuple(v.shape)}")
+    for v in ((R,) + tuple(vecs) + tuple(M for M, _, _ in mats)
+              + tuple(v for v, _ in more_vecs)):
         if v.dtype != R.dtype or v.device != R.device:
             raise ValueError(f"{name}: all operands must share R's dtype "
                              "and device")
         if not v.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-    for v in vecs:
-        if v.shape != (B, m):
-            raise ValueError(f"{name}: vectors must be ({B}, {m}), "
-                             f"got {tuple(v.shape)}")
-    if R.device.type == "cuda" and not fits(m, R.dtype):
-        raise ValueError(f"{name}: m = {m} exceeds the one-block shared "
-                         f"memory fit for {R.dtype}")
+    if tiles and R.device.type == "cuda" and not fits(m, R.dtype, nz, neq):
+        raise ValueError(f"{name}: m = {m}, nz = {nz}, neq = {neq} exceeds "
+                         f"the one-block shared memory fit for {R.dtype}")
 
 
 def _launch_error(name, err):
@@ -110,8 +130,8 @@ def factor_inv(R, dinv, rhs=None, z=None):
 
     Replaces the TPU kernel ``qpth_tpu/ops/pallas/lanes.py::_factor_inv_call``
     (``factor_inv_lanes`` / ``factor_inv_solve_lanes`` /
-    ``factor_inv_solve_rz_lanes``). On the H100 it is bound by bytes: R in
-    and Linv out once (>= 0.098 ms at B = 4096, m = 100, f32). One block per
+    ``factor_inv_solve_rz_lanes``). On the H100 it is bound by bytes: R's
+    triangle in and Linv out once (>= 0.074 ms at B = 4096, m = 100, f32). One block per
     QP keeps R, Linv and the current column of L in shared memory, so no
     intermediate touches device memory; see csrc/factor_inv.cu.
 
@@ -167,8 +187,128 @@ def factor_inv_plain(R, dinv, rhs=None, z=None):
 
 
 # ---------------------------------------------------------------------------
-# Kernel B: ipm_step_xfree
+# Kernel 5: inv_solve
 # ---------------------------------------------------------------------------
+
+def inv_solve(Linv, rhs):
+    """x = Linv^T (Linv rhs) = T^-1 rhs from the inverse factor that
+    :func:`factor_inv` returned: every further solve on that factor (the
+    corrector and the Gondzio corrections of the composed IPM step).
+
+    Replaces the TPU kernel ``qpth_tpu/ops/pallas/lanes.py::inv_solve_lanes``.
+    On the H100 it is bound by bytes: Linv's lower triangle read once
+    (>= 0.026 ms at B = 4096, m = 100, f32; 0.051 ms at f64). One block per QP streams Linv's rows through
+    registers, each row used for both products, so Linv is read from device
+    memory exactly once and no tile is kept on chip; see csrc/inv_solve.cu."""
+    B, m = rhs.shape
+    if Linv.shape != (B, m, m):
+        raise ValueError(f"inv_solve: Linv must be ({B}, {m}, {m}), "
+                         f"got {tuple(Linv.shape)}")
+    if m > THREADS:
+        raise ValueError(f"inv_solve: m = {m} exceeds {THREADS}")
+    _check("inv_solve", Linv, (rhs,), B, m, tiles=False)
+    if Linv.device.type == "cpu":
+        return inv_solve_plain(Linv, rhs)
+    fn = _fn("inv_solve", f"qpth_inv_solve_{_SUFFIX[Linv.dtype]}", 3, 2)
+    x = torch.empty_like(rhs)
+    with torch.cuda.device(Linv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(Linv.data_ptr(), rhs.data_ptr(), x.data_ptr(), B, m, stream)
+    _launch_error("inv_solve", err)
+    LAUNCHES["inv_solve"] += 1
+    return x
+
+
+def inv_solve_plain(Linv, rhs):
+    """Plain PyTorch version of :func:`inv_solve`: two batched products."""
+    return _apply_inv(Linv, rhs)
+
+
+# ---------------------------------------------------------------------------
+# The fused iteration: kernel B (x-free), ipm_step, ipm_step_eq
+# ---------------------------------------------------------------------------
+
+def _mv(M, v):
+    """M v for M (1 or B, r, c) and v (B, c)."""
+    return torch.matmul(M, v.unsqueeze(-1)).squeeze(-1)
+
+
+def _step(v, dv):
+    """Per-lane max step with v + a dv >= 0 (NaN propagates)."""
+    inf = torch.full_like(v, float("inf"))
+    return torch.where(dv < 0, -v / dv, inf).amin(dim=-1, keepdim=True)
+
+
+def _mehrotra_plain(R, s, z, rhs_a, n_correctors, W=None, u=None):
+    """The predictor, corrector and Gondzio passes shared by the three
+    fused-step kernels, on T = R + diag(s/z) with predictor RHS ``rhs_a``.
+    With ``W`` and ``u`` (equality constraints) also dy = u - W dz, updated
+    pass by pass as the kernels do. Returns (dz, ds, dy, alpha2) before the
+    NaN freeze; alpha2 is (B, 1)."""
+    m = s.shape[-1]
+    d = z / s
+    G = factor_inv_plain(R, s / z)
+
+    def step_min(dz_, ds_):
+        return torch.minimum(_step(z, dz_), _step(s, ds_))
+
+    one = torch.ones((), dtype=s.dtype, device=s.device)
+    dz_a = _apply_inv(G, rhs_a)
+    ds_a = (-z - dz_a) / d
+    dy = u - _mv(W, dz_a) if W is not None else None
+    alpha = torch.minimum(step_min(dz_a, ds_a), one)
+    t2 = (s * z).sum(dim=-1, keepdim=True)
+    t1 = ((s + alpha * ds_a) * (z + alpha * dz_a)).sum(dim=-1, keepdim=True)
+    ratio = t1 / t2
+    sig = ratio * ratio * ratio
+    mu = t2.abs() / m
+
+    rs_c = (-(mu * sig) + ds_a * dz_a) / s
+    dz_c = _apply_inv(G, -(rs_c / d))
+    ds_c = (-rs_c - dz_c) / d
+    dz = dz_a + dz_c
+    ds = ds_a + ds_c
+    if W is not None:
+        dy = dy - _mv(W, dz_c)
+
+    for _ in range(n_correctors):
+        a_g = torch.minimum(step_min(dz, ds), one)
+        a_t = torch.minimum(1.08 * a_g + 0.08, one)
+        v = (s + a_t * ds) * (z + a_t * dz)
+        mu_t = sig * mu
+        rs_g = (v - torch.minimum(torch.maximum(v, 0.1 * mu_t),
+                                  10.0 * mu_t)) / s
+        ddz = _apply_inv(G, -(rs_g / d))
+        dds = (-rs_g - ddz) / d
+        dz_n, ds_n = dz + ddz, ds + dds
+        a_n = torch.minimum(step_min(dz_n, ds_n), one)
+        acc = a_n > a_g
+        dz = torch.where(acc, dz_n, dz)
+        ds = torch.where(acc, ds_n, ds)
+        if W is not None:
+            dy = torch.where(acc, dy - _mv(W, ddz), dy)
+
+    alpha2 = torch.minimum(0.999 * step_min(dz, ds), one)
+    return dz, ds, dy, alpha2
+
+
+def _freeze(alpha2, *dirs):
+    """Mask alpha and every direction on lanes with a NaN in any
+    direction (0 * NaN is NaN, so alpha alone would not do)."""
+    frozen = torch.zeros_like(alpha2, dtype=torch.bool)
+    for dv in dirs:
+        frozen = frozen | torch.isnan(dv).any(dim=-1, keepdim=True)
+    zero = torch.zeros((), dtype=alpha2.dtype, device=alpha2.device)
+    return (torch.where(frozen, zero, alpha2),
+            *(torch.where(frozen, zero, dv) for dv in dirs))
+
+
+def _batched_bits(B, *mats):
+    """Bit k set when the k-th matrix has batch B > 1 (``StepOperand`` in
+    csrc/ipm_step_body.cuh)."""
+    return sum(1 << k for k, M in enumerate(mats)
+               if B > 1 and M.shape[0] == B)
+
 
 def ipm_step_xfree(R, s, z, q, n_correctors: int = 0):
     """One x-free Mehrotra iteration (neq = 0) on T = R + diag(s/z) with
@@ -178,11 +318,11 @@ def ipm_step_xfree(R, s, z, q, n_correctors: int = 0):
 
     Replaces the TPU kernel
     ``qpth_tpu/ops/pallas/lanes.py::ipm_step_xfree_lanes``. On the H100 it
-    is bound by bytes: R read once plus a few (B, m) vectors (>= 0.05 ms at
-    B = 4096, m = 100, f32). One block per QP: R and inv(L) in shared
+    is bound by bytes: R's triangle read once plus a few (B, m) vectors
+    (>= 0.028 ms at B = 4096, m = 100, f32). One block per QP: R and inv(L) in shared
     memory, every m-vector in registers (thread i holds element i), the
     per-QP min/sum reductions as block reductions; see
-    csrc/ipm_step_xfree.cu."""
+    csrc/ipm_step_body.cuh, which the three fused steps share."""
     B, m = s.shape
     _check("ipm_step_xfree", R, (s, z, q), B, m)
     if R.device.type == "cpu":
@@ -202,58 +342,108 @@ def ipm_step_xfree(R, s, z, q, n_correctors: int = 0):
     return zeta, s_out, z_out, alpha
 
 
-def _step(v, dv):
-    """Per-lane max step with v + a dv >= 0 (NaN propagates)."""
-    inf = torch.full_like(v, float("inf"))
-    return torch.where(dv < 0, -v / dv, inf).amin(dim=-1, keepdim=True)
-
-
 def ipm_step_xfree_plain(R, s, z, q, n_correctors: int = 0):
     """Plain PyTorch version of :func:`ipm_step_xfree` (the algebra of
     ``lanes.py:1030-1098``, batch-major)."""
-    m = s.shape[-1]
-    d = z / s
-    G = factor_inv_plain(R, s / z)
-    rhs_a = q - torch.matmul(R, z.unsqueeze(-1)).squeeze(-1)
+    dz, ds, _, alpha2 = _mehrotra_plain(R, s, z, q - _mv(R, z),
+                                        n_correctors)
+    alpha2, dz, ds = _freeze(alpha2, dz, ds)
+    return z + dz, s + alpha2 * ds, z + alpha2 * dz, alpha2.squeeze(-1)
 
-    def step_min(dz_, ds_):
-        return torch.minimum(_step(z, dz_), _step(s, ds_))
 
-    one = torch.ones((), dtype=s.dtype, device=s.device)
-    dz_a = _apply_inv(G, rhs_a)
-    ds_a = (-z - dz_a) / d
-    alpha = torch.minimum(step_min(dz_a, ds_a), one)
-    t2 = (s * z).sum(dim=-1, keepdim=True)
-    t1 = ((s + alpha * ds_a) * (z + alpha * dz_a)).sum(dim=-1, keepdim=True)
-    ratio = t1 / t2
-    sig = ratio * ratio * ratio
-    mu = t2.abs() / m
+def ipm_step(R, iGT, x, s, z, q, ip, n_correctors: int = 0):
+    """One Mehrotra iteration (neq = 0) with the direct x update: the
+    x-free iteration plus dx = -(x + ip) - iGT (z + dz), with ``iGT`` =
+    Q^-1 G^T (1 or B, nz, m) and ``ip`` = Q^-1 p (B, nz). A NaN in dx
+    freezes the lane too. Returns (x', s', z', alpha).
 
-    rs_c = (-(mu * sig) + ds_a * dz_a) / s
-    dz_c = _apply_inv(G, -(rs_c / d))
-    ds_c = (-rs_c - dz_c) / d
-    dz = dz_a + dz_c
-    ds = ds_a + ds_c
+    Replaces the TPU kernel ``qpth_tpu/ops/pallas/lanes.py::ipm_step_lanes``.
+    On the H100 it is bound by bytes: R's triangle and iGT read once each
+    (>= 0.078 ms at B = 4096, m = nz = 100, f32). Kernel B's block design; iGT is read
+    from device memory once, one warp per row, after the corrector; see
+    csrc/ipm_step.cu."""
+    B, m = s.shape
+    nz = x.shape[-1]
+    _check("ipm_step", R, (s, z, q), B, m, mats=((iGT, nz, m),),
+           more_vecs=((x, nz), (ip, nz)), nz=nz)
+    if R.device.type == "cpu":
+        return ipm_step_plain(R, iGT, x, s, z, q, ip, n_correctors)
+    fn = _fn("ipm_step", f"qpth_ipm_step_{_SUFFIX[R.dtype]}", 11, 5)
+    x_out, s_out, z_out = (torch.empty_like(v) for v in (x, s, z))
+    alpha = torch.empty((B,), dtype=s.dtype, device=s.device)
+    with torch.cuda.device(R.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(R.data_ptr(), iGT.data_ptr(), x.data_ptr(), s.data_ptr(),
+                 z.data_ptr(), q.data_ptr(), ip.data_ptr(),
+                 x_out.data_ptr(), s_out.data_ptr(), z_out.data_ptr(),
+                 alpha.data_ptr(), B, m, nz, _batched_bits(B, R, iGT),
+                 int(n_correctors), stream)
+    _launch_error("ipm_step", err)
+    LAUNCHES["ipm_step"] += 1
+    return x_out, s_out, z_out, alpha
 
-    for _ in range(n_correctors):
-        a_g = torch.minimum(step_min(dz, ds), one)
-        a_t = torch.minimum(1.08 * a_g + 0.08, one)
-        v = (s + a_t * ds) * (z + a_t * dz)
-        mu_t = sig * mu
-        rs_g = (v - torch.minimum(torch.maximum(v, 0.1 * mu_t),
-                                  10.0 * mu_t)) / s
-        ddz = _apply_inv(G, -(rs_g / d))
-        dds = (-rs_g - ddz) / d
-        dz_n, ds_n = dz + ddz, ds + dds
-        a_n = torch.minimum(step_min(dz_n, ds_n), one)
-        acc = a_n > a_g
-        dz = torch.where(acc, dz_n, dz)
-        ds = torch.where(acc, ds_n, ds)
 
-    alpha2 = torch.minimum(0.999 * step_min(dz, ds), one)
-    frozen = (torch.isnan(dz) | torch.isnan(ds)).any(dim=-1, keepdim=True)
-    zero = torch.zeros((), dtype=s.dtype, device=s.device)
-    alpha2 = torch.where(frozen, zero, alpha2)
-    dz_m = torch.where(frozen, zero, dz)
-    return (z + dz_m, s + alpha2 * torch.where(frozen, zero, ds),
-            z + alpha2 * dz_m, alpha2.squeeze(-1))
+def ipm_step_plain(R, iGT, x, s, z, q, ip, n_correctors: int = 0):
+    """Plain PyTorch version of :func:`ipm_step` (the algebra of
+    ``lanes.py:638-725``, batch-major)."""
+    dz, ds, _, alpha2 = _mehrotra_plain(R, s, z, q - _mv(R, z),
+                                        n_correctors)
+    dx = -_mv(iGT, z + dz) - (x + ip)
+    alpha2, dz, ds, dx = _freeze(alpha2, dz, ds, dx)
+    return (x + alpha2 * dx, s + alpha2 * ds, z + alpha2 * dz,
+            alpha2.squeeze(-1))
+
+
+def ipm_step_eq(R, iGT, S21, W, iS11, S11, iAT, x, s, z, y, q, ip, rb,
+                n_correctors: int = 0):
+    """One Mehrotra iteration with equality constraints. Matrices (each
+    with its own batch, 1 or B): R (m, m), ``iGT`` = Q^-1 G^T (nz, m),
+    S21 (m, neq), W (neq, m), ``iS11`` = S11^-1 and S11 (neq, neq),
+    ``iAT`` = Q^-1 A^T (nz, neq). Vectors: x, ``ip`` = Q^-1 p (B, nz);
+    s, z, ``q`` = -(h + G Q^-1 p) (B, m); y, ``rb`` = b + A Q^-1 p
+    (B, neq). Returns (x', s', z', y', alpha).
+
+    Replaces the TPU kernel
+    ``qpth_tpu/ops/pallas/lanes.py::ipm_step_eq_lanes``. On the H100 it is
+    bound by bytes: the seven matrices read once (>= 0.18 ms at B = 4096,
+    m = nz = 100, neq = 50, f32). Kernel B's block design; the equality
+    operands do not fit in shared memory beside R and inv(L), so they are
+    read from device memory where they are used, one warp per row; see
+    csrc/ipm_step_eq.cu."""
+    B, m = s.shape
+    nz, neq = x.shape[-1], y.shape[-1]
+    mats = (iGT, S21, W, iS11, S11, iAT)
+    _check("ipm_step_eq", R, (s, z, q), B, m,
+           mats=tuple(zip(mats, (nz, m, neq, neq, neq, nz),
+                          (m, neq, m, neq, neq, neq))),
+           more_vecs=((x, nz), (ip, nz), (y, neq), (rb, neq)), nz=nz,
+           neq=neq)
+    if R.device.type == "cpu":
+        return ipm_step_eq_plain(R, iGT, S21, W, iS11, S11, iAT, x, s, z, y,
+                                 q, ip, rb, n_correctors)
+    fn = _fn("ipm_step_eq", f"qpth_ipm_step_eq_{_SUFFIX[R.dtype]}", 19, 6)
+    x_out, s_out, z_out, y_out = (torch.empty_like(v) for v in (x, s, z, y))
+    alpha = torch.empty((B,), dtype=s.dtype, device=s.device)
+    ptrs = [t.data_ptr() for t in (R,) + mats + (x, s, z, y, q, ip, rb, x_out,
+                                                 s_out, z_out, y_out, alpha)]
+    with torch.cuda.device(R.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*ptrs, B, m, nz, neq, _batched_bits(B, R, *mats),
+                 int(n_correctors), stream)
+    _launch_error("ipm_step_eq", err)
+    LAUNCHES["ipm_step_eq"] += 1
+    return x_out, s_out, z_out, y_out, alpha
+
+
+def ipm_step_eq_plain(R, iGT, S21, W, iS11, S11, iAT, x, s, z, y, q, ip, rb,
+                      n_correctors: int = 0):
+    """Plain PyTorch version of :func:`ipm_step_eq` (the algebra of
+    ``lanes.py:796-902``, batch-major, in the same order)."""
+    r1 = (rb + _mv(S21.transpose(-1, -2), z)) + _mv(S11, y)
+    u = _mv(iS11, -r1)
+    rhs_a = (q - _mv(S21, (_mv(W, z) + y) + u)) - _mv(R, z)
+    dz, ds, dy, alpha2 = _mehrotra_plain(R, s, z, rhs_a, n_correctors, W, u)
+    dx = (-(x + ip) - _mv(iGT, z + dz)) - _mv(iAT, y + dy)
+    alpha2, dz, ds, dx, dy = _freeze(alpha2, dz, ds, dx, dy)
+    return (x + alpha2 * dx, s + alpha2 * ds, z + alpha2 * dz,
+            y + alpha2 * dy, alpha2.squeeze(-1))

@@ -61,7 +61,14 @@ def cholesky(a):
 
 
 def cho_solve(L, rhs):
-    """Solve (L L^T) X = rhs for matrix rhs (B, n, k)."""
+    """Solve (L L^T) X = rhs for matrix rhs (B, n, k), L (bL, n, n). With a
+    shared factor the B right-hand sides fold into the column dimension:
+    one multi-RHS solve instead of B small ones."""
+    if L.shape[0] == 1 and rhs.shape[0] != 1:
+        B, n, k = rhs.shape
+        flat = rhs.permute(1, 0, 2).reshape(n, B * k)
+        out = torch.cholesky_solve(flat, L[0])
+        return out.reshape(n, B, k).permute(1, 0, 2)
     return torch.cholesky_solve(rhs, L)
 
 

@@ -1,13 +1,14 @@
-"""Ruiz equilibration of the QP data (counterpart of ``qpth_tpu/scaling.py``,
-ported for neq = 0).
+"""Ruiz equilibration of the QP data (counterpart of ``qpth_tpu/scaling.py``).
 
-Scaled problem (E: variable scaling, R_G: constraint row scaling, c: cost
-scaling):
+Scaled problem (E: variable scaling, R_G / R_A: constraint row scalings,
+c: cost scaling):
 
     Q~ = c E Q E      p~ = c E p
     G~ = R_G G E      h~ = R_G h
+    A~ = R_A A E      b~ = R_A b
 
-and back: x = E x~, lam = R_G lam~ / c, s = s~ / R_G. Every factor is a
+and back: x = E x~, lam = R_G lam~ / c, nu = R_A nu~ / c, s = s~ / R_G.
+Every factor is a
 power of two, so scaling and unscaling are exact in floating point. When a
 matrix is shared (batch 1) the norms are max-reduced over the batch and one
 shared scaling is used, so a shared Q/G is never materialized at batch
@@ -28,7 +29,7 @@ class Scaling(NamedTuple):
     E: torch.Tensor
     #: Inequality row scaling, (b, nineq).
     RG: torch.Tensor
-    #: Equality row scaling; None (neq > 0 is not ported).
+    #: Equality row scaling, (b, neq); None when neq == 0.
     RA: Optional[torch.Tensor]
     #: Cost scaling, (b, 1).
     c: torch.Tensor
@@ -87,11 +88,19 @@ def scale_G(G, s: Scaling):
     return G * (s.RG.unsqueeze(-1) * s.E.unsqueeze(-2))
 
 
-def ruiz_scalings(Q, G, iters: int = 4, pow2: bool = True,
-                  probe: bool = False, probe_spread: float = 16.0):
-    """Ruiz scalings of (Q, G) (not the scaled matrices).
+def scale_A(A, s: Scaling):
+    """A~ = R_A A E (None passes through)."""
+    if A is None:
+        return None
+    return A * (s.RA.unsqueeze(-1) * s.E.unsqueeze(-2))
 
-    Q: (bQ, nz, nz); G: (bG, nineq, nz). Returns ``(scaling, ok)``.
+
+def ruiz_scalings(Q, G, A=None, iters: int = 4, pow2: bool = True,
+                  probe: bool = False, probe_spread: float = 16.0):
+    """Ruiz scalings of (Q, G, A) (not the scaled matrices).
+
+    Q: (bQ, nz, nz); G: (bG, nineq, nz); A: (bA, neq, nz) or None. Returns
+    ``(scaling, ok)``.
 
     ``probe``: when the row/column norm spreads are <= ``probe_spread`` and
     the magnitudes lie in (2^-10, 2^10), one Ruiz iteration from the
@@ -102,51 +111,55 @@ def ruiz_scalings(Q, G, iters: int = 4, pow2: bool = True,
     dt = Q.dtype
     bQ, nz = Q.shape[0], Q.shape[-1]
     bG, nineq = G.shape[0], G.shape[-2]
-    bmax = max(bQ, bG)
+    batches = [bQ, bG] + ([A.shape[0]] if A is not None else [])
+    bmax = max(batches)
     # Per-lane scalings only when every matrix carries the same batch.
-    b = bmax if bQ == bG else 1
+    b = bmax if all(x == bmax for x in batches) else 1
     aQ, aG = Q.abs(), G.abs()
+    aA = A.abs() if A is not None else None
     probe = probe and iters > 0
+
+    def rnd(v):
+        return _pow2(v) if pow2 and v is not None else v
+
+    def isqrt(v):
+        return None if v is None else 1.0 / torch.sqrt(_safe(v))
 
     caQ = _colmax(aQ, b)
     cn0 = torch.maximum(caQ, _colmax(aG, b))
+    if A is not None:
+        cn0 = torch.maximum(cn0, _colmax(aA, b))
     rg0 = _rowmax(aG, b)
+    ra0 = _rowmax(aA, b) if A is not None else None
 
     def run_ruiz():
         E = torch.ones((b, nz), dtype=dt, device=Q.device)
         RG = torch.ones((b, nineq), dtype=dt, device=Q.device)
+        RA = (torch.ones((b, A.shape[-2]), dtype=dt, device=Q.device)
+              if A is not None else None)
         for k in range(iters):
             if k == 0:
-                cn, rg = cn0, rg0
+                cn, rg, ra = cn0, rg0, ra0
             else:
                 cn = torch.maximum(_wcolmax(aQ, E, b) * E,
                                    _wcolmax(aG, RG, b) * E)
+                if A is not None:
+                    cn = torch.maximum(cn, _wcolmax(aA, RA, b) * E)
                 rg = _wrowmax(aG, E, b) * RG
-            dE = 1.0 / torch.sqrt(_safe(cn))
-            dG = 1.0 / torch.sqrt(_safe(rg))
-            if pow2:
-                dE, dG = _pow2(dE), _pow2(dG)
-            E, RG = E * dE, RG * dG
+                ra = _wrowmax(aA, E, b) * RA if A is not None else None
+            E, RG = E * rnd(isqrt(cn)), RG * rnd(isqrt(rg))
+            RA = RA * rnd(isqrt(ra)) if A is not None else None
         qn = (_wcolmax(aQ, E, b) * E).mean(dim=-1, keepdim=True)
-        c = 1.0 / _safe(qn)
-        if pow2:
-            c = _pow2(c)
-        return E, RG, c
+        return E, RG, RA, rnd(1.0 / _safe(qn))
 
     def light():
-        E1 = 1.0 / torch.sqrt(_safe(cn0))
-        RG1 = 1.0 / torch.sqrt(_safe(rg0))
-        if pow2:
-            E1, RG1 = _pow2(E1), _pow2(RG1)
+        E1, RG1, RA1 = rnd(isqrt(cn0)), rnd(isqrt(rg0)), rnd(isqrt(ra0))
         qn = (E1 * E1 * caQ).mean(dim=-1, keepdim=True)
-        c1 = 1.0 / _safe(qn)
-        if pow2:
-            c1 = _pow2(c1)
-        return E1, RG1, c1
+        return E1, RG1, RA1, rnd(1.0 / _safe(qn))
 
     ok = None
     if not probe:
-        E, RG, c = run_ruiz()
+        E, RG, RA, c = run_ruiz()
     else:
         def spread(v):
             vs = _safe(v)
@@ -155,25 +168,38 @@ def ruiz_scalings(Q, G, iters: int = 4, pow2: bool = True,
         flag = torch.ones((), dtype=torch.bool, device=Q.device)
         hi = torch.zeros((), dtype=dt, device=Q.device)
         lo = torch.full((), float("inf"), dtype=dt, device=Q.device)
-        for v in (cn0, rg0):
+        for v in (cn0, rg0) + ((ra0,) if A is not None else ()):
             flag = flag & (spread(v) <= probe_spread)
             hi = torch.maximum(hi, _safe(v).amax())
             lo = torch.minimum(lo, _safe(v).amin())
         flag = flag & (hi < 2.0 ** 10) & (lo > 2.0 ** -10)
         ok = bool(flag)
-        E, RG, c = light() if ok else run_ruiz()
-    return Scaling(E=E, RG=RG, RA=None, c=c), ok
+        E, RG, RA, c = light() if ok else run_ruiz()
+    return Scaling(E=E, RG=RG, RA=RA, c=c), ok
 
 
 def identity_like(s: Scaling) -> Scaling:
     """All-ones scaling with s's shapes (the identity coordinates)."""
     return Scaling(E=torch.ones_like(s.E), RG=torch.ones_like(s.RG),
-                   RA=None, c=torch.ones_like(s.c))
+                   RA=torch.ones_like(s.RA) if s.RA is not None else None,
+                   c=torch.ones_like(s.c))
 
 
-def scale_vecs(p, h, s: Scaling):
+def scale_vecs(p, h, b, s: Scaling):
     """Scale the per-solve vectors (B, .) into equilibrated coordinates."""
-    return p * (s.c * s.E), h * s.RG
+    return (p * (s.c * s.E), h * s.RG,
+            b * s.RA if b is not None else None)
+
+
+def scale_point(x, slacks, z, y, s: Scaling):
+    """Map an original-coordinates point (a warm start) into scaled
+    coordinates: the inverse of the solution mapping above."""
+    x = x / s.E
+    z = z * (s.c / s.RG)
+    slacks = slacks * s.RG
+    if y is not None and y.shape[-1] > 0 and s.RA is not None:
+        y = y * (s.c / s.RA)
+    return x, slacks, z, y
 
 
 def resolve_equilibrate(config, dtype) -> bool:

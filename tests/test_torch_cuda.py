@@ -72,6 +72,151 @@ def test_ipm_step_kernel_matches_plain(cuda, n_correctors, shared, dtype):
         assert (a - b).abs().max().item() <= TOL[dtype] * 10
 
 
+def _rand(shape, dtype, device, seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (scale * (torch.rand(*shape, generator=g, dtype=torch.float64)
+                     - 0.5)).to(dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [37, 100])
+def test_inv_solve_kernel_matches_plain(cuda, m, dtype):
+    B = 64
+    R = _spd(B, m, dtype, cuda)
+    dinv, rhs, _ = _vecs(B, m, dtype, cuda)
+    Linv = kernels.factor_inv(R, dinv)
+    kernels.reset_launches()
+    got = kernels.inv_solve(Linv, rhs)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["inv_solve"] == 1
+    want = kernels.inv_solve_plain(Linv, rhs)
+    assert (got - want).abs().max().item() <= TOL[dtype]
+
+
+def _step_operands(B, m, nz, neq, shared, dtype, device):
+    """Operands of the fused steps; ``shared`` names the matrices given
+    with batch 1 ("R", "g" for Q^-1 G^T, "eq" for the five equality
+    operands)."""
+    def b(key):
+        return 1 if key in shared else B
+
+    R = _spd(b("R"), m, dtype, device)
+    iGT = _rand((b("g"), nz, m), dtype, device, 2, 0.5)
+    be = b("eq")
+    S21 = _rand((be, m, neq), dtype, device, 3, 0.5)
+    W = _rand((be, neq, m), dtype, device, 4, 0.5)
+    iS11 = _rand((be, neq, neq), dtype, device, 5, 0.5)
+    S11 = _rand((be, neq, neq), dtype, device, 6, 0.5)
+    iAT = _rand((be, nz, neq), dtype, device, 7, 0.5)
+    s, z, q = _vecs(B, m, dtype, device)
+    x, ip = (_rand((B, nz), dtype, device, k) for k in (8, 9))
+    y, rb = (_rand((B, neq), dtype, device, k) for k in (10, 11))
+    return (R, iGT, S21, W, iS11, S11, iAT), (x, s, z, y, q - 1.0, ip, rb)
+
+
+SHAPES = [(37, 37, 11), (17, 33, 5), (40, 24, 48)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shared", [(), ("R", "g"), ("R",)],
+                         ids=["batched", "shared", "shared_R"])
+@pytest.mark.parametrize("n_correctors", [0, 2])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_ipm_step_direct_x_kernel_matches_plain(cuda, shape, n_correctors,
+                                                shared, dtype):
+    m, nz, _ = shape
+    (R, iGT, *_), (x, s, z, _, q, ip, _) = _step_operands(
+        64, m, nz, 1, shared, dtype, cuda)
+    got = kernels.ipm_step(R, iGT, x, s, z, q, ip, n_correctors)
+    torch.cuda.synchronize()
+    want = kernels.ipm_step_plain(R, iGT, x, s, z, q, ip, n_correctors)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= TOL[dtype] * 10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shared", [(), ("R", "g", "eq"), ("eq",), ("R",)],
+                         ids=["batched", "shared", "shared_eq", "shared_R"])
+@pytest.mark.parametrize("n_correctors", [0, 2])
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+def test_ipm_step_eq_kernel_matches_plain(cuda, shape, n_correctors, shared,
+                                          dtype):
+    m, nz, neq = shape
+    mats, vecs = _step_operands(64, m, nz, neq, shared, dtype, cuda)
+    got = kernels.ipm_step_eq(*mats, *vecs, n_correctors)
+    torch.cuda.synchronize()
+    want = kernels.ipm_step_eq_plain(*mats, *vecs, n_correctors)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= TOL[dtype] * 10
+
+
+@pytest.mark.parametrize("eq", [False, True])
+def test_fused_step_freezes_non_spd_lane(cuda, eq):
+    """A lane whose T is not SPD comes back unchanged with alpha = 0, from
+    the kernel as from the plain version; the other lanes move."""
+    B, m, nz, neq = 16, 20, 24, 6
+    mats, vecs = _step_operands(B, m, nz, neq, (), torch.float64, cuda)
+    R = (mats[0] - 2.0 * torch.eye(m, dtype=torch.float64, device=cuda))
+    x, s, z, y, q, ip, rb = vecs
+    s = z * (3.0 + s)          # T = R - 2 I + diag(s/z) is SPD ...
+    s[5] = 0.1 * z[5]          # ... but not in lane 5
+    if eq:
+        args = (R.contiguous(), *mats[1:], x, s, z, y, q, ip, rb, 1)
+        got = kernels.ipm_step_eq(*args)
+        want = kernels.ipm_step_eq_plain(*args)
+    else:
+        args = (R.contiguous(), mats[1], x, s, z, q, ip, 1)
+        got = kernels.ipm_step(*args)
+        want = kernels.ipm_step_plain(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert (a - b).abs().max().item() <= 1e-9
+    assert got[-1][5].item() == 0.0 and (got[-1] > 0).sum().item() == B - 1
+    assert torch.equal(got[0][5], x[5])
+
+
+@pytest.mark.parametrize("case", ["eq_inverse", "eq_f64_default",
+                                  "direct_x", "f64_default"])
+def test_slice2_solve_on_card_matches_cpu(cuda, case):
+    """The paths of the equality-constrained, direct-x and float64-default
+    branches: the card (kernels) against the CPU (plain versions). Where
+    every iterate is scored, eps = 1e-9 (refinement off) ends the solve on
+    the eps test; at the default eps = 1e-12 the window closes on float64
+    rounding noise and the iteration count is not comparable."""
+    r = np.random.RandomState(1)
+    B, nz, nineq, neq = 16, 20, 18, 7
+    L = r.rand(B, nz, nz)
+    Q = L @ L.transpose(0, 2, 1) + np.eye(nz)
+    G = r.randn(B, nineq, nz)
+    z0 = r.randn(B, nz)
+    h = np.einsum("bmn,bn->bm", G, z0) + r.rand(B, nineq)
+    p = r.randn(B, nz)
+    A = r.randn(B, neq, nz)
+    b = np.einsum("bmn,bn->bm", A, z0)
+    cfg, eq, key = {
+        "eq_inverse": (qt.SolverConfig(solve_method="inverse",
+                                       resid_every=7), True, "ipm_step_eq"),
+        "eq_f64_default": (qt.SolverConfig(eps=1e-9, refine_steps=0), True,
+                           "inv_solve"),
+        "direct_x": (qt.SolverConfig(solve_method="inverse", resid_every=1,
+                                     eps=1e-9, refine_steps=0),
+                     False, "ipm_step"),
+        "f64_default": (qt.SolverConfig(eps=1e-9, refine_steps=0), False,
+                        "inv_solve"),
+    }[case]
+    args = [torch.tensor(v) for v in ((Q, p, G, h, A, b) if eq
+                                      else (Q, p, G, h))]
+    kernels.reset_launches()
+    on_card = qt.solve_qp_full(*args, config=cfg)
+    assert kernels.LAUNCHES[key] > 0
+    on_cpu = qt.solve_qp_full(*args, config=cfg, device="cpu")
+    assert int(on_card.stats.iterations) == int(on_cpu.stats.iterations)
+    for name in ("z", "lam", "s") + (("nu",) if eq else ()):
+        assert (getattr(on_card, name).cpu()
+                - getattr(on_cpu, name)).abs().max().item() < 1e-8
+
+
 def test_solve_on_card_matches_cpu(cuda):
     r = np.random.RandomState(0)
     L = r.rand(16, 20, 20)

@@ -101,3 +101,68 @@ def test_ruiz_scalings_match_jax(case, probe):
                            np.asarray(jscaling.scale_Q(Q, sj)))
     npt.assert_array_equal(tscaling.scale_G(torch.tensor(G), st).numpy(),
                            np.asarray(jscaling.scale_G(G, sj)))
+
+
+@pytest.mark.parametrize("probe", [True, False])
+@pytest.mark.parametrize("case", ["well_scaled", "badly_scaled",
+                                  "shared_A"])
+def test_ruiz_scalings_with_equalities_match_jax(case, probe):
+    """With A: the equality row scaling R_A, A's columns in the variable
+    scaling, A's row norms in the probe; then the vector and point maps."""
+    rng = np.random.RandomState(4)
+    Q, G = _spd(rng, 5, 6), rng.randn(5, 4, 6)
+    A = rng.randn(1 if case == "shared_A" else 5, 3, 6)
+    if case == "badly_scaled":
+        A = A * np.array([1e4, 1.0, 1e-3])[:, None]
+    sj, okj = jscaling.ruiz_scalings(jnp.asarray(Q), jnp.asarray(G),
+                                     jnp.asarray(A), probe=probe,
+                                     return_ok=True)
+    st, okt = tscaling.ruiz_scalings(torch.tensor(Q), torch.tensor(G),
+                                     torch.tensor(A), probe=probe)
+    assert okt == (None if okj is None else bool(okj))
+    if probe:
+        assert okt == (case != "badly_scaled")
+    for k in ("E", "RG", "RA", "c"):
+        npt.assert_array_equal(getattr(st, k).numpy(),
+                               np.asarray(getattr(sj, k)), err_msg=k)
+    npt.assert_array_equal(tscaling.scale_A(torch.tensor(A), st).numpy(),
+                           np.asarray(jscaling.scale_A(A, sj)))
+    assert tscaling.scale_A(None, st) is None
+    ident = tscaling.identity_like(st)
+    assert bool((ident.RA == 1).all()) and ident.RA.shape == st.RA.shape
+
+    p, h, b = rng.randn(5, 6), rng.randn(5, 4), rng.randn(5, 3)
+    for got, want in zip(
+            tscaling.scale_vecs(*(torch.tensor(v) for v in (p, h, b)), st),
+            jscaling.scale_vecs(p, h, b, sj)):
+        npt.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tscaling.scale_vecs(torch.tensor(p), torch.tensor(h), None,
+                               st)[2] is None
+    pt = (rng.randn(5, 6), rng.rand(5, 4), rng.rand(5, 4), rng.randn(5, 3))
+    for got, want in zip(
+            tscaling.scale_point(*(torch.tensor(v) for v in pt), st),
+            jscaling.scale_point(*pt, sj)):
+        npt.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("bL", [1, 6], ids=["shared", "batched"])
+def test_cho_solve_matches_jax(bL):
+    """Cholesky solves with matrix and vector right-hand sides; a shared
+    factor folds the batch into the columns of one solve."""
+    rng = np.random.RandomState(bL)
+    M = _spd(rng, bL, 5)
+    rhs, v = rng.randn(6, 5, 3), rng.randn(6, 5)
+    Lj, Lt = jlinalg.cholesky(jnp.asarray(M)), tlinalg.cholesky(
+        torch.tensor(M))
+    npt.assert_allclose(Lt.numpy(), np.asarray(Lj), atol=1e-13)
+    npt.assert_allclose(tlinalg.cho_solve(Lt, torch.tensor(rhs)).numpy(),
+                        np.asarray(jlinalg.cho_solve(Lj, jnp.asarray(rhs))),
+                        atol=1e-12)
+    npt.assert_allclose(tlinalg.cho_solve_vec(Lt, torch.tensor(v)).numpy(),
+                        np.asarray(jlinalg.cho_solve_vec(Lj,
+                                                         jnp.asarray(v))),
+                        atol=1e-12)
+    # one shared right-hand side against batched factors broadcasts
+    if bL > 1:
+        one = tlinalg.cho_solve(Lt, torch.tensor(rhs[:1]))
+        assert one.shape == (6, 5, 3)

@@ -106,29 +106,38 @@ def test_cpu_solve_counts_no_launch():
 
 def test_kernel_fit_predicate():
     """One QP's two m x m tiles and 8 m-vectors within 227 KB of shared
-    memory per block."""
+    memory per block; the fused steps with the direct x update add one
+    nz-vector and, with equality constraints, 4 neq-vectors."""
     assert kernels.fits(168, torch.float32)
     assert not kernels.fits(169, torch.float32)
     assert kernels.fits(118, torch.float64)
     assert not kernels.fits(119, torch.float64)
+    # (2 * 168^2 + 8 * 168) * 4 = 231168 bytes leave 1280 = 320 words.
+    assert kernels.fits(168, torch.float32, nz=320)
+    assert not kernels.fits(168, torch.float32, nz=321)
+    assert kernels.fits(168, torch.float32, nz=120, neq=50)
+    assert not kernels.fits(168, torch.float32, nz=121, neq=50)
+    assert kernels.fits(100, torch.float64, nz=100, neq=50)
+    # m is bound by the thread count whatever the bytes.
+    assert not kernels.fits(257, torch.float32) and kernels.THREADS == 256
 
 
-F32 = qt.SolverConfig()
+def test_fused_step_supported_follows_device():
+    """The solver asks the per-kernel fit on CUDA only; the plain versions
+    on the CPU take any size."""
+    assert kkt_ops.fused_step_supported("cpu", torch.float32, 500, 500, 9)
+    assert kkt_ops.fused_step_supported("cuda", torch.float32, 168)
+    assert not kkt_ops.fused_step_supported("cuda", torch.float32, 168, 321)
+
+
 CASES = {
-    "equality_constraints": dict(eq=True),
-    "nineq_zero": dict(no_ineq=True),
     "kkt_full": dict(config=qt.SolverConfig(kkt_solver=qt.KKTSolver.FULL)),
     "kkt_ir": dict(config=qt.SolverConfig(kkt_solver=qt.KKTSolver.IR)),
     "cpu_oracle": dict(config=qt.SolverConfig(
         solver=qt.QPSolvers.CPU_ORACLE)),
-    "subst": dict(config=qt.SolverConfig(solve_method="subst")),
-    "f64_default": dict(dtype=torch.float64),
-    "resid_every_1": dict(config=qt.SolverConfig(resid_every=1)),
-    "coeff_x_false": dict(config=qt.SolverConfig(coeff_x=False)),
     "refine_steps": dict(config=qt.SolverConfig(refine_steps=2)),
     "refine_auto_eps": dict(config=qt.SolverConfig(eps=1e-8)),
     "escalate": dict(config=qt.SolverConfig(escalate="oracle")),
-    "warm_start": dict(init=True),
     "verbose": dict(config=qt.SolverConfig(verbose=1)),
     "beyond_fit": dict(fit=True),
 }
@@ -143,18 +152,9 @@ def test_unported_branch_raises(case):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             kkt_ops.resolve_backend(torch.float32, 200, "cuda")
         return
-    Q, p, G, h = _qp(spec.get("dtype", torch.float32))
-    kw = dict(config=spec.get("config", F32), device="cpu")
-    A = b = None
-    if spec.get("eq"):
-        A, b = torch.ones(1, 6), torch.zeros(1)
-    if spec.get("no_ineq"):
-        G = h = None
-    if spec.get("init"):
-        kw["init"] = (torch.zeros(8, 6), torch.ones(8, 5), torch.ones(8, 5),
-                      None)
+    Q, p, G, h = _qp()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        qt.solve_qp_full(Q, p, G, h, A, b, **kw)
+        qt.solve_qp_full(Q, p, G, h, config=spec["config"], device="cpu")
 
 
 def test_config_matches_jax_fields():
