@@ -17,7 +17,10 @@ through the kernels at full width (B = 4096, float32 unless said):
 * path 3: the direct x recurrence (untracked residuals, coeff_x=False) and
   a warm-started re-solve;
 * path 4: the float64 default (substitution mode), without and with the
-  equality rows.
+  equality rows;
+* path 5: the sudoku layer's QP on the diagonal structured tier
+  (``solve_qp_diag``, with and without the fused ``diag_step``),
+  ``SpQPFunction`` on its COO patterns, and ``nn.OptNetSudoku``.
 
 It checks the results against float64 solves on the card and on the CPU
 and times kernels and solves with CUDA events. Any failed check exits
@@ -53,6 +56,20 @@ SUDOKU = dict(nx=64, neq=40)      # the OptNet sudoku layer at n = 2
 N_F64_CARD, N_F64_CPU = 256, 64   # lanes re-solved in float64
 TOL_F32 = 1e-3                    # kernel vs plain, float32, main shape
 TOL_F64 = 1e-10                   # kernel vs plain, float64, odd shape
+# Backward clamp at which path 5 holds the float32 gradient to A, path 2's:
+# at the default 1e-8 a few lanes of the sudoku QP have more than nx - neq
+# active bounds and M = A diag(1/H) A^T (condition ~1e9 there) is beyond
+# float32. Phase 9b prints the lanes by clamp; the JAX package gives NaN on
+# the same lane (tests/test_torch_diag_f32.py).
+GRAD_CLAMP5 = 1e-5
+# Lanes of path 5 (of B) whose float32 duals may part between the fused and
+# the composed step (0.5%). On a few lanes of the sudoku draw the float32
+# duals are set by rounding: the composed step parts from itself on as many
+# lanes when only its products change. Phase 9b (b) measures that witness
+# beside the gate, holds every step of the kernel against its plain version
+# and float64, and holds the two steps to each other on every lane in
+# float64; tests/test_torch_diag_f32.py pins the effect in the JAX package.
+DUAL_LANES_OFF = B // 200
 REPS = 20
 
 #: Published peaks (memory bytes/s, float32 and float64 non-tensor FLOP/s)
@@ -92,6 +109,13 @@ def make_sudoku(nbatch, nx, neq, seed=0):
     p = -(npr.rand(nbatch, nx) < 0.25).astype(np.float64)
     return (0.1 * np.eye(nx), p, -np.eye(nx), np.zeros(nx), A,
             A @ np.full(nx, 2.0 / nx))
+
+
+def sudoku_diag(nbatch, seed=0):
+    """make_sudoku's draws in the diagonal tier's form (q, p, g, h, A, b):
+    q = diag(Q) = 0.1, g = diag(G) = -1, shared q, g, h, A and b."""
+    Q, p, G, h, A, b = make_sudoku(nbatch, SUDOKU["nx"], SUDOKU["neq"], seed)
+    return np.diag(Q).copy(), p, np.diag(G).copy(), h, A, b
 
 
 def fail(msg):
@@ -343,6 +367,53 @@ def main():
                       f"{name_}: non-SPD lane was not frozen")
     del Linv, mats, v, got
 
+    # Kernel 11 (diag_step): float32 at path 5's shape (n = 64, neq = 40)
+    # with g shared and batched, float64 at an odd shape with n beyond the
+    # block's threads and one lane whose M is not SPD (frozen by both).
+    def diag_operands(nb, n, neq, g_batched, dtype, seed, nan_lane=None):
+        """One interior iterate of a diagonal-tier QP with a shared A and
+        M = A diag(1/H) A^T from it: diag_step's operands."""
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+
+        def r(*shape):
+            return torch.rand(*shape, generator=g_, device=dev,
+                              dtype=torch.float64)
+
+        A = r(1, neq, n)
+        g = -(0.5 + r(nb if g_batched else 1, n))
+        s_, z_ = 0.5 + r(nb, n), 0.5 + r(nb, n)
+        H = 0.1 + g * g * z_ / s_
+        M = torch.matmul(A * (1.0 / H).unsqueeze(-2), A.transpose(-1, -2))
+        if nan_lane is not None:
+            M[nan_lane] = -M[nan_lane]
+        vs = [r(nb, n) - 0.5, r(nb, n) - 0.5, r(nb, neq) - 0.5,
+              r(nb, n) - 0.5, s_, z_, r(nb, neq) - 0.5]
+        return [x_.to(dtype).contiguous() for x_ in [M, A, g, H] + vs]
+
+    for g_batched in (False, True):
+        args = diag_operands(B, SUDOKU["nx"], SUDOKU["neq"], g_batched,
+                             torch.float32, 90)
+        for nc in (0, 2):
+            got = kernels.diag_step(*args, nc)
+            torch.cuda.synchronize()
+            compare(f"diag_step f32 B={B} n={SUDOKU['nx']} "
+                    f"neq={SUDOKU['neq']} g_batched={g_batched} "
+                    f"n_correctors={nc}", got,
+                    kernels.diag_step_plain(*args, nc), TOL_F32,
+                    "diag_step")
+    for n_, neq_ in ((37, 11), (300, 20)):
+        args = diag_operands(64, n_, neq_, True, torch.float64, 91,
+                             nan_lane=5)
+        for nc in (0, 2):
+            got = kernels.diag_step(*args, nc)
+            compare(f"diag_step f64 B=64 n={n_} neq={neq_} n_correctors="
+                    f"{nc} (lane 5 frozen)", got,
+                    kernels.diag_step_plain(*args, nc), TOL_F64)
+            check(all(bool(torch.equal(o[5], a_[5]))
+                      for o, a_ in zip(got, args[7:])),
+                  "diag_step: the lane with a non-SPD M was not frozen")
+    del args, got
+
     # ---- phase 3: forward at full width through the kernels ----
     Q, p, G, h = make_problem(B, NZ, NINEQ, seed=0)
     f32 = [torch.tensor(v, dtype=torch.float32, device=dev)
@@ -499,12 +570,13 @@ def main():
         (z_ * z_).sum().backward()
         return z_.detach(), [a.grad for a in args]
 
-    def f32_error(tag, z32_, arrs_np, config64, limit=2e-2):
+    def f32_error(tag, z32_, arrs_np, config64, limit=2e-2,
+                  solve=qt.solve_qp_full):
         """Median relative z error of the float32 solve against a float64
         solve of the first N_F64_CARD lanes on the card; ``limit`` None
         reports it without a check."""
-        ref = qt.solve_qp_full(*tensors(arrs_np, torch.float64, dev,
-                                        N_F64_CARD), config=config64)
+        ref = solve(*tensors(arrs_np, torch.float64, dev, N_F64_CARD),
+                    config=config64)
         err = ((z32_[:N_F64_CARD].double() - ref.z).norm(dim=1)
                / ref.z.norm(dim=1).clamp_min(1e-300))
         med_ = float(err.median())
@@ -804,6 +876,377 @@ def main():
         path_facts[key] = facts
         del d64, g4, sol4
 
+    # ---- phase 9b (path 5): the diagonal structured tier ----
+    # Path 2's draws with Q and G given by their diagonals: per iteration
+    # one (neq x neq) M = A diag(1/H) A^T instead of path 2's (64 x 64) T.
+    dg_np = sudoku_diag(B)
+    nx, neq5 = SUDOKU["nx"], SUDOKU["neq"]
+    cfg5 = qt.SolverConfig()
+    cfg5f = qt.SolverConfig(fused_diag_step=True)
+    cfg5_64 = qt.SolverConfig()          # the float64 default
+    d32 = tensors(dg_np, torch.float32, dev)
+
+    def diag_drive(tag, arrs, config):
+        """One solve_qp_diag_full with the counts set to 0 just before and
+        read just after (the nonzero ones)."""
+        kernels.reset_launches()
+        sol_ = qt.solve_qp_diag_full(*arrs, config=config)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        its_ = int(sol_.stats.iterations)
+        print(f"# {tag}: iterations {its_}, launches {launches}, "
+              f"best_resids max {float(sol_.stats.best_resids.max()):.3e} "
+              f"median {float(sol_.stats.best_resids.median()):.3e}")
+        for name_ in ("z", "nu", "lam", "s"):
+            check(bool(torch.isfinite(getattr(sol_, name_)).all()),
+                  f"{tag}: {name_} not finite")
+        return sol_, launches, its_
+
+    def diag_grads(arrs, config, device, lane_A=False):
+        """z and the gradients of sum(z^2) to all six; ``lane_A`` gives A
+        per lane, so its gradient is per lane too."""
+        args = [a_.clone() for a_ in arrs]
+        if lane_A:
+            args[4] = args[4].expand(args[1].shape[0],
+                                     *args[4].shape).contiguous()
+        args = [a_.requires_grad_(True) for a_ in args]
+        z_ = qt.solve_qp_diag(*args, config=config, device=device)
+        (z_ * z_).sum().backward()
+        return z_.detach(), [a_.grad for a_ in args]
+
+    def fwd_bwd_launches(arrs, config, fwd):
+        """Launches of one forward+backward; the backward adds one kernel A
+        factor of M and one inv_solve."""
+        kernels.reset_launches()
+        _, g_ = diag_grads(arrs, config, dev)
+        torch.cuda.synchronize()
+        fb = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        want = dict(fwd, factor_inv=fwd.get("factor_inv", 0) + 1,
+                    inv_solve=fwd.get("inv_solve", 0) + 1)
+        check(fb == want, f"path 5 forward+backward launches {fb}, "
+              f"expected {want}")
+        return fb, g_
+
+    # (a) the float32 default: kernel A factors M, inv_solve solves on it.
+    sol5a, l5a, its5a = diag_drive(
+        f"phase 9b (path 5a): diagonal tier f32 default B={B} n={nx} "
+        f"neq={neq5}", d32, cfg5)
+    steps5 = l5a.get("factor_inv", 0) - 1        # one more at init
+    check(steps5 in (its5a - 1, its5a) and steps5 > 0
+          and l5a == dict(factor_inv=steps5 + 1, inv_solve=1 + (
+              2 + cfg5.n_correctors) * steps5),
+          "path 5a: kernel A and inv_solve did not run once per stepping "
+          "iteration (and at init)")
+    med5 = f32_error("phase 9b (path 5a)", sol5a.z, dg_np, cfg5_64,
+                     solve=qt.solve_qp_diag_full)
+    l5a_fb, g5 = fwd_bwd_launches(d32, cfg5, l5a)
+    check(tuple(g5[4].shape) == (neq5, nx), "path 5a: gradient to A shape")
+
+    # Lanes whose gradient to A is NaN, A given per lane, by backward
+    # clamp: the diagonal tier against the dense tier (path 2's solver).
+    def nan_lanes(solve, arrs, config):
+        """The lanes whose gradient to A (given per lane) has a NaN."""
+        args = [a_.clone() for a_ in arrs]
+        args[4] = args[4].expand(B, *args[4].shape).contiguous()
+        args[4].requires_grad_(True)
+        z_ = solve(*args, config=config, device=dev)
+        (z_ * z_).sum().backward()
+        return torch.nonzero(torch.isnan(args[4].grad).flatten(1).any(1)
+                             ).flatten().tolist()
+
+    nan5 = {f"{c_:g}": nan_lanes(qt.solve_qp_diag, d32,
+                                 qt.SolverConfig(grad_clamp=c_))
+            for c_ in (1e-8, 1e-7, 1e-6, 1e-5)}
+    nan_dense = len(nan_lanes(qt.solve_qp, sud32,
+                              qt.SolverConfig(check_Q_spd=False)))
+    print(f"# phase 9b (path 5a): lanes of {B} with a NaN gradient to A, "
+          f"by grad_clamp: diagonal tier {nan5}; dense tier (path 2) at "
+          f"1e-8: {nan_dense} lanes; the shared A's gradient at the default "
+          f"clamp is finite: {bool(torch.isfinite(g5[4]).all())}")
+    nan5 = {k: len(v) for k, v in nan5.items()}
+    check(nan5[f"{GRAD_CLAMP5:g}"] == 0, f"path 5a: NaN gradients to A at "
+          f"grad_clamp {GRAD_CLAMP5:g}")
+    # How good the float32 gradient is at that clamp: per lane over
+    # N_F64_CARD lanes and for the shared A over all lanes, against f64.
+    cfg5c = qt.SolverConfig(grad_clamp=GRAD_CLAMP5)
+    per_lane5 = [diag_grads(tensors(dg_np, dt, dev, N_F64_CARD), cfg5c, dev,
+                            lane_A=True)[1][4].double().flatten(1)
+                 for dt in (torch.float32, torch.float64)]
+    lane_err5 = ((per_lane5[0] - per_lane5[1]).norm(dim=1)
+                 / per_lane5[1].norm(dim=1).clamp_min(1e-300))
+    med_gA5 = float(lane_err5.median())
+    gA32 = diag_grads(d32, cfg5c, dev)[1][4].double().flatten()
+    gA64 = diag_grads(tensors(dg_np, torch.float64, dev), cfg5c,
+                      dev)[1][4].flatten()
+    cos_gA5 = float(torch.nn.functional.cosine_similarity(gA32, gA64, dim=0))
+    print(f"# phase 9b (path 5a): gradient to A, f32 vs f64 on the card "
+          f"(grad_clamp {GRAD_CLAMP5:g}): per lane over {N_F64_CARD} lanes "
+          f"median rel err {med_gA5:.3e}, 90th percentile "
+          f"{float(lane_err5.quantile(0.9)):.3e}; shared A over all {B} "
+          f"lanes: cosine {cos_gA5:.4f}")
+    check(med_gA5 <= 5e-2 and cos_gA5 >= 0.9, f"path 5a: f32 gradient to "
+          f"A (per-lane median {med_gA5:.3e}, cosine {cos_gA5:.4f})")
+    del per_lane5, gA32, gA64
+
+    # (b) the fused step: one diag_step per stepping iteration.
+    sol5b, l5b, its5b = diag_drive(
+        f"phase 9b (path 5b): fused diag_step f32 B={B}", d32, cfg5f)
+    steps5b = l5b.get("diag_step", 0)
+    check(steps5b in (its5b - 1, its5b) and steps5b > 0
+          and l5b == dict(factor_inv=1, inv_solve=1, diag_step=steps5b),
+          "path 5b: diag_step did not run once per stepping iteration")
+    l5b_fb, _ = fwd_bwd_launches(d32, cfg5f, l5b)
+
+    # Float64 on all B lanes, where rounding does not decide the duals: the
+    # fused step against the composed one, every lane, z, lam and nu.
+    d64 = tensors(dg_np, torch.float64, dev)
+    sol5_64 = qt.solve_qp_diag_full(*d64, config=cfg5_64)
+    sol5_64f = qt.solve_qp_diag_full(*d64, config=qt.SolverConfig(
+        fused_diag_step=True))
+
+    def lane_rel(a_, b_):
+        """Per lane max |a - b| / max |b|."""
+        return ((a_.double() - b_.double()).abs().amax(-1)
+                / b_.double().abs().amax(-1).clamp_min(1e-300))
+
+    e64 = {k: float(lane_rel(getattr(sol5_64f, k), getattr(sol5_64, k)).max())
+           for k in ("z", "lam", "nu")}
+    its64 = (int(sol5_64f.stats.iterations), int(sol5_64.stats.iterations))
+    print(f"# phase 9b (path 5b): f64 fused vs composed on all {B} lanes: "
+          f"per-lane relative error max " + ", ".join(
+              f"{k} {v:.3e}" for k, v in e64.items())
+          + f"; iterations {its64[0]} / {its64[1]}")
+    check(max(e64.values()) <= 1e-7 and its64[0] == its64[1],
+          "path 5b: f64 fused step against the composed one")
+
+    # Every float32 launch of (b) replayed: the kernel's step and its plain
+    # version's, on the card from the same inputs, each against the step in
+    # float64. The run is (b) again with the launches recorded.
+    steps = []
+    launch = kernels.diag_step
+
+    def recorded(*args):
+        out = launch(*args)
+        steps.append((args, out))
+        return out
+
+    kernels.diag_step = recorded
+    try:
+        sol_rec = qt.solve_qp_diag_full(*d32, config=cfg5f)
+    finally:
+        kernels.diag_step = launch
+    check(torch.equal(sol_rec.lam, sol5b.lam), "path 5b: the recorded run "
+          "is not (b)'s")
+
+    def step_err(out, ref):
+        return torch.stack([(o_.double() - r_).abs().amax(-1)
+                            / r_.abs().amax(-1).clamp_min(1e-30)
+                            for o_, r_ in zip(out, ref)]).amax(0)
+
+    e_k, e_p, e_kp = [], [], []
+    for args, out in steps:
+        ref = kernels.diag_step_plain(*[a_.double() if torch.is_tensor(a_)
+                                        else a_ for a_ in args])
+        plain = kernels.diag_step_plain(*args)
+        e_k.append(step_err(out, ref))
+        e_p.append(step_err(plain, ref))
+        e_kp.append(step_err(out, [v.double() for v in plain]))
+    e_k, e_p, e_kp = (torch.stack(v).flatten() for v in (e_k, e_p, e_kp))
+    qs = torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64, device=dev)
+    q_k, q_p = e_k.quantile(qs).tolist(), e_p.quantile(qs).tolist()
+    worse = float((e_k > e_p).double().mean())
+    del steps, sol_rec
+    print(f"# phase 9b (path 5b): {len(e_k) // B} f32 launches x {B} lanes "
+          f"replayed: step error against float64 (per lane, relative) "
+          f"kernel q50/q90/q99 " + "/".join(f"{v:.3e}" for v in q_k)
+          + ", plain " + "/".join(f"{v:.3e}" for v in q_p)
+          + f"; kernel worse than plain on {worse:.3f} of (step, lane); "
+          f"kernel vs plain max {float(e_kp.max()):.3e}")
+    check(all(a_ <= 2 * b_ + 1e-7 for a_, b_ in zip(q_k, q_p)),
+          "path 5b: the kernel's float32 steps are less accurate than its "
+          "plain version's")
+
+    # Float32 agreement with (a) at the reference's fused-vs-composed
+    # tolerance: z on every lane, lam and nu on all but DUAL_LANES_OFF.
+    # Beside it the witness: the composed step against itself with A given
+    # per lane (other products) and with p moved by one ulp.
+    def excess(a_, b_):
+        """Per lane: how far |a - b| exceeds 2e-4 + 1e-3 |b| (<= 0: within
+        the tolerance)."""
+        return ((a_.double() - b_.double()).abs()
+                - (2e-4 + 1e-3 * b_.double().abs())).amax(dim=-1).cpu()
+
+    def parted(sol_, ref_):
+        return {k: torch.nonzero(excess(getattr(sol_, k), getattr(ref_, k))
+                                 > 0).flatten().tolist()
+                for k in ("z", "lam", "nu")}
+
+    lane_A = list(d32)
+    lane_A[4] = d32[4].expand(B, neq5, nx).contiguous()
+    sol_lane = qt.solve_qp_diag_full(*lane_A, config=cfg5)
+    ulp = list(d32)
+    ulp[1] = d32[1] * (1 + 2.0 ** -23)
+    off = parted(sol5b, sol5a)
+    wit = {"A per lane": parted(sol_lane, sol5a),
+           "p one ulp": parted(qt.solve_qp_diag_full(*ulp, config=cfg5),
+                               sol5a)}
+    print(f"# phase 9b (path 5b): fused vs composed: iterations {its5b} / "
+          f"{its5a}; max abs diff z "
+          f"{float((sol5b.z - sol5a.z).abs().max()):.3e}; lanes beyond "
+          f"atol 2e-4 rtol 1e-3: {off}; the composed step against itself "
+          f"(witness): " + "; ".join(f"{k}: {v}" for k, v in wit.items()))
+    for k in ("lam", "nu"):
+        for i in off[k][:10]:
+            ref = getattr(sol5_64, k)[i]
+            print(f"#   {k} lane {i}: |fused - composed| "
+                  f"{float((getattr(sol5b, k)[i] - getattr(sol5a, k)[i]).abs().max()):.3e}, "
+                  f"|composed - f64| "
+                  f"{float((getattr(sol5a, k)[i].double() - ref).abs().max()):.3e}, "
+                  f"|fused - f64| "
+                  f"{float((getattr(sol5b, k)[i].double() - ref).abs().max()):.3e}")
+    off = {k: len(v) for k, v in off.items()}
+    wit = {k: {kk: len(vv) for kk, vv in v.items()} for k, v in wit.items()}
+    check(off["z"] == 0 and off["lam"] <= DUAL_LANES_OFF
+          and off["nu"] <= DUAL_LANES_OFF,
+          "path 5b: the fused step disagrees with the composed one")
+    del d64, lane_A, ulp
+
+    # (c) float64, card against CPU, composed and fused; and the diagonal
+    # tier against the dense tier (path 2's solver) on the same draws.
+    def diag_card_vs_cpu(tag, config):
+        out = {}
+        for device in (dev, "cpu"):
+            arrs = tensors(dg_np, torch.float64, device, N_F64_CPU)
+            out[device] = (qt.solve_qp_diag_full(*arrs, config=config,
+                                                 device=device),
+                           diag_grads(arrs, config, device)[1])
+        (sc_, gc_), (sh_, gh_) = out[dev], out["cpu"]
+        ez, enu = rel(sc_.z.cpu(), sh_.z), rel(sc_.nu.cpu(), sh_.nu)
+        eg = {nm: rel(gc_[i].cpu(), gh_[i]) for i, nm in enumerate("qpghAb")}
+        its_ = (int(sc_.stats.iterations), int(sh_.stats.iterations))
+        print(f"# {tag}: f64 card vs CPU over {N_F64_CPU} lanes: z {ez:.3e}, "
+              f"nu {enu:.3e}, gradients "
+              + ", ".join(f"{nm} {e:.3e}" for nm, e in eg.items())
+              + f"; iterations {its_[0]} / {its_[1]}")
+        check(ez <= 1e-8 and enu <= 1e-8 and max(eg.values()) <= 1e-7
+              and its_[0] == its_[1], f"{tag}: f64 card vs CPU")
+        return dict(z=ez, nu=enu, grads=eg, iterations=its_[0])
+
+    cvc5 = {k: diag_card_vs_cpu(f"phase 9b (path 5c) {k}, eps=1e-9",
+                                qt.SolverConfig(eps=1e-9,
+                                                fused_diag_step=f_))
+            for k, f_ in (("composed", False), ("fused", True))}
+    sol_dense = qt.solve_qp_full(*tensors(sud_np, torch.float64, dev,
+                                          N_F64_CPU),
+                                 config=qt.SolverConfig(check_Q_spd=False))
+    sol_diag = qt.solve_qp_diag_full(*tensors(dg_np, torch.float64, dev,
+                                              N_F64_CPU), config=cfg5_64)
+    e_dd = {k: rel(getattr(sol_diag, k), getattr(sol_dense, k))
+            for k in ("z", "nu")}
+    print(f"# phase 9b (path 5c): f64 diagonal vs dense tier on the card "
+          f"over {N_F64_CPU} lanes: z {e_dd['z']:.3e}, nu {e_dd['nu']:.3e}; "
+          f"iterations {int(sol_diag.stats.iterations)} / "
+          f"{int(sol_dense.stats.iterations)}")
+    check(e_dd["z"] <= 1e-7, "path 5c: diagonal vs dense tier")
+
+    # (d) SpQPFunction on the sudoku layer's COO patterns. The values give
+    # A per lane, so it runs the tier with a batched A: gated bit for bit
+    # against the solve of (a)'s data with A expanded per lane, and by its
+    # float32 error against float64 as (a) is. Its distance to (a)'s
+    # shared-A solve (other products, other rounding) is printed.
+    ii = np.stack([np.arange(nx)] * 2)
+    sp = qt.SpQPFunction(ii, (nx, nx), ii, (nx, nx),
+                         np.stack(np.nonzero(np.ones((neq5, nx)))),
+                         (neq5, nx))
+    check(sp.structure == "diag", f"path 5d: structure {sp.structure}")
+    q_, p_, g_, h_, A_, b_ = dg_np
+    sp_vals = [torch.tensor(v, dtype=torch.float32, device=dev) for v in (
+        np.tile(q_, (B, 1)), p_, np.tile(g_, (B, 1)), np.tile(h_, (B, 1)),
+        np.tile(A_.ravel(), (B, 1)), np.tile(b_, (B, 1)))]
+    kernels.reset_launches()
+    sol5d = sp.solve_full(*sp_vals)
+    torch.cuda.synchronize()
+    l5d = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    z_call = sp(*sp_vals)
+    ex5d = excess(sol5d.z, sol5a.z)
+    med5d = f32_error("phase 9b (path 5d)", sol5d.z, dg_np, cfg5_64,
+                      solve=qt.solve_qp_diag_full)
+    print(f"# phase 9b (path 5d): SpQPFunction structure {sp.structure}: "
+          f"iterations {int(sol5d.stats.iterations)}, launches {l5d}; z vs "
+          f"the tier with A per lane: max abs diff "
+          f"{float((sol5d.z - sol_lane.z).abs().max()):.3e}; vs (a): max "
+          f"abs diff {float((sol5d.z - sol5a.z).abs().max()):.3e}, lanes "
+          f"beyond atol 2e-4 rtol 1e-3 (not gated): {int((ex5d > 0).sum())}")
+    check(bool(torch.equal(sol5d.z, sol_lane.z))
+          and bool(torch.equal(z_call, sol5d.z))
+          and l5d == l5a, "path 5d: SpQPFunction did not run the diagonal "
+          "tier")
+    del sp_vals, sol_lane, z_call
+
+    # (e) nn.OptNetSudoku at its defaults, one forward and backward. Its
+    # b = 1 is infeasible for a random A: the solver returns its least-bad
+    # iterate, whose score is printed, and the float32 backward leaves NaN
+    # on the lanes where the duals ran away (counted, A given per lane, and
+    # printed). Gated: it runs through kernels A and 5, its output is
+    # finite, and in float64 the card matches the CPU, gradient included.
+    layer = qt.nn.OptNetSudoku(generator=torch.Generator(
+        device=dev).manual_seed(0))
+    puzzles = (-d32[1]).reshape(B, 4, 4, 4)
+    kernels.reset_launches()
+    out5 = layer(puzzles)
+    ((out5 - puzzles) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    l5e = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    layer_qp = (d32[0], -puzzles.reshape(B, -1), d32[2], d32[3],
+                layer.A.detach(), torch.ones(neq5, device=dev))
+    score = qt.solve_qp_diag_full(*layer_qp,
+                                  config=layer.qp_config).stats.best_resids
+    nan_layer = len(nan_lanes(qt.solve_qp_diag, layer_qp, layer.qp_config))
+    layer_match = []
+    for device in (dev, "cpu"):
+        m64 = qt.nn.OptNetSudoku(device=device, dtype=torch.float64)
+        with torch.no_grad():
+            m64.A.copy_(layer.A.detach().double().to(device))
+        pz = puzzles[:N_F64_CPU].double().to(device)
+        o_ = m64(pz)
+        ((o_ - pz) ** 2).mean().backward()
+        layer_match.append((o_.detach().cpu(), m64.A.grad.cpu()))
+    e_layer = (rel(layer_match[0][0], layer_match[1][0]),
+               rel(layer_match[0][1], layer_match[1][1]))
+    print(f"# phase 9b (path 5e): nn.OptNetSudoku() f32 B={B}: launches "
+          f"{l5e}, output finite {bool(torch.isfinite(out5).all())}, A.grad "
+          f"finite {bool(torch.isfinite(layer.A.grad).all())} (not gated: "
+          f"{nan_layer} of {B} lanes give NaN with A per lane)"
+          f"; best score (not gated) min {float(score.min()):.3e} median "
+          f"{float(score.median()):.3e} max {float(score.max()):.3e}; f64 "
+          f"card vs CPU over {N_F64_CPU} lanes: output {e_layer[0]:.3e}, "
+          f"A.grad {e_layer[1]:.3e}")
+    check(l5e.get("factor_inv", 0) > 0 and l5e.get("inv_solve", 0) > 0
+          and bool(torch.isfinite(out5).all()),
+          "path 5e: the layer did not run through kernels A and inv_solve "
+          "to a finite output")
+    check(e_layer[0] <= 1e-8 and e_layer[1] <= 1e-7,
+          "path 5e: the layer's f64 card run against its CPU run")
+    path_launches["path5_diag"] = dict(
+        a_forward=l5a, a_forward_backward=l5a_fb, b_forward=l5b,
+        b_forward_backward=l5b_fb, spqp_forward=l5d, layer=l5e)
+    path_facts["path5_diag"] = dict(
+        iterations=dict(a=its5a, b=its5b),
+        f32_median_rel_err=dict(a=med5, spqp=med5d),
+        nan_grad_A_lanes=dict(diag=nan5, dense_1e8=nan_dense),
+        grad_A_f32_vs_f64=dict(grad_clamp=GRAD_CLAMP5,
+                               per_lane_median=med_gA5,
+                               shared_cosine=cos_gA5),
+        fused_vs_composed_lanes_beyond=off, composed_vs_itself_lanes=wit,
+        fused_vs_composed_f64_all_lanes=e64,
+        step_replay=dict(kernel_q=q_k, plain_q=q_p, kernel_worse=worse),
+        card_vs_cpu=cvc5, diag_vs_dense=e_dd,
+        layer=dict(score_median=float(score.median()),
+                   nan_grad_A_lanes=nan_layer,
+                   grad_A_finite=bool(torch.isfinite(layer.A.grad).all()),
+                   card_vs_cpu_f64=e_layer))
+    del sol5_64, sol5_64f, layer, out5, score
+
     # ---- phase 10: timings (CUDA events, median of REPS after warm-up) ----
     def cuda_ms(fn, reps=REPS, warm=3):
         for _ in range(warm):
@@ -974,6 +1417,68 @@ def main():
     print(f"# phase 10: inv_solve float32: {inv32['ms']:.3f} ms (plain "
           f"{inv32['plain_ms']:.3f} ms, bound {inv32['bound_ms']:.4f} ms by "
           f"{inv32['bound_by']}, library {inv32['library_ms']:.3f} ms)")
+
+    # Path 5's kernels at its shape (B = 4096, n = 64, neq = 40, float32):
+    # kernel 11, and kernels A and 5 on M as path 5a launches them.
+    args11 = diag_operands(B, nx, neq5, False, torch.float32, 92)
+    M5 = args11[0]
+    tri5 = B * (neq5 * (neq5 + 1) // 2) * elt
+    vec_n, vec_q = B * nx * elt, B * neq5 * elt
+    # M's triangle; A and g once (shared); H, rx, rz, x, s, z and ry, y
+    # in; x, s, z, y out.
+    b11 = tri5 + (neq5 * nx + nx) * elt + 9 * vec_n + 3 * vec_q
+    f11 = B * ((2.0 / 3.0) * neq5 ** 3
+               + (2 + nc) * (4 * neq5 * nx + 2 * neq5 * neq5))
+    b_ms, b_by = bound(b11, f11)
+    rows.append(dict(
+        name="diag_step", route="cuda",
+        source="qpth_tpu_torch/csrc/diag_step.cu",
+        replaces="qpth_tpu/ops/pallas/diagstep.py:165",
+        launches=path_launches["path5_diag"]["b_forward_backward"][
+            "diag_step"],
+        max_abs_err=errs["diag_step"],
+        ms=cuda_ms(lambda: kernels.diag_step(*args11, nc)),
+        plain_ms=cuda_ms(lambda: kernels.diag_step_plain(*args11, nc)),
+        bound_ms=b_ms, bound_by=b_by, bound_bytes=b11, library_ms=None,
+        shape=dict(B=B, n=nx, neq=neq5)))
+    zero5 = torch.zeros(B, neq5, device=dev)
+    rhs5 = vecs(B, neq5, torch.float32, 93, k=1)[0] - 1.0
+    Linv5 = kernels.factor_inv(M5, zero5)
+    eye5 = torch.eye(neq5, device=dev).expand(B, neq5, neq5)
+
+    def library_linv5():
+        L5, _ = torch.linalg.cholesky_ex(M5)
+        return torch.linalg.solve_triangular(L5, eye5, upper=False)
+
+    def library_solve5():
+        w_ = torch.matmul(Linv5, rhs5.unsqueeze(-1))
+        return torch.matmul(Linv5.transpose(-1, -2), w_)
+
+    fb5 = path_launches["path5_diag"]["a_forward_backward"]
+    for name_, k_fn, p_fn, l_fn, nbytes, flops in (
+            ("factor_inv", lambda: kernels.factor_inv(M5, zero5),
+             lambda: kernels.factor_inv_plain(M5, zero5), library_linv5,
+             tri5 + vec_q + B * neq5 * neq5 * elt,
+             B * (2.0 / 3.0) * neq5 ** 3),
+            ("inv_solve", lambda: kernels.inv_solve(Linv5, rhs5),
+             lambda: kernels.inv_solve_plain(Linv5, rhs5), library_solve5,
+             tri5 + 2 * vec_q, 4.0 * B * neq5 * (neq5 + 1) / 2)):
+        b_ms, b_by = bound(nbytes, flops)
+        row = next(r for r in rows if r["name"] == name_)
+        row["path5_m40"] = dict(
+            launches=fb5[name_], ms=cuda_ms(k_fn), plain_ms=cuda_ms(p_fn),
+            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+            library_ms=cuda_ms(l_fn), dtype="float32")
+    for r in [rows[-1]] + [r for r in rows if "path5_m40" in r]:
+        f_ = r if r["name"] == "diag_step" else r["path5_m40"]
+        lib = (f", library {f_['library_ms']:.3f} ms"
+               if f_["library_ms"] is not None else "")
+        print(f"# phase 10: {r['name']} at path 5's shape: {f_['ms']:.3f} ms "
+              f"(plain {f_['plain_ms']:.3f} ms, bound {f_['bound_ms']:.4f} "
+              f"ms by {f_['bound_by']}, {f_['bound_bytes'] / 1e6:.1f} MB"
+              f"{lib}) at B={B} n={nx} neq={neq5} float32; launches on "
+              f"path 5 forward+backward {f_['launches']}")
+    del args11, M5, Linv5, eye5
     del mats, v, Linv, Linv64, R64, step_args, eq_args
 
     spread = {}
@@ -1046,10 +1551,19 @@ def main():
             forward_backward_ms=report(f"{key} forward+backward", host_ms(
                 lambda: grads_of(d64, cfg_d64, dev))))
         del d64
+    paths_ms["path5_diag"] = dict(
+        a_forward_ms=report("path5 (a) diagonal tier forward", host_ms(
+            lambda: qt.solve_qp_diag_full(*d32, config=cfg5)), its5a),
+        a_forward_backward_ms=report("path5 (a) forward+backward", host_ms(
+            lambda: diag_grads(d32, cfg5, dev))),
+        b_forward_ms=report("path5 (b) fused diag_step forward", host_ms(
+            lambda: qt.solve_qp_diag_full(*d32, config=cfg5f)), its5b),
+        b_forward_backward_ms=report("path5 (b) forward+backward", host_ms(
+            lambda: diag_grads(d32, cfg5f, dev))))
 
     # Device time of one forward+backward by kernel (torch.profiler), and
     # the share of the wall time the device was idle: the neq = 0 main
-    # path and path 1.
+    # path, path 1, and path 5 composed and fused.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1086,12 +1600,15 @@ def main():
 
     trace = trace_of("neq = 0 main path", lambda: fwd_bwd(f32, cfg, dev))
     trace1 = trace_of("path 1", lambda: grads_of(eq32, cfg, dev))
+    trace5 = {k: trace_of(f"path 5 ({k})", lambda: diag_grads(d32, c_, dev))
+              for k, c_ in (("a", cfg5), ("b", cfg5f))}
 
     # ---- phase 11: result lines ----
     for key in paths_ms:
         paths_ms[key].update(launches=path_launches[key],
                              **path_facts[key])
     paths_ms["path1_eq_batched"]["trace"] = trace1
+    paths_ms["path5_diag"]["trace"] = trace5
     print(json.dumps({"kernels": rows, "end_to_end": {
         "forward_ms": fwd_ms, "forward_backward_ms": fb_ms,
         "forward_qps": B / fwd_ms * 1e3,

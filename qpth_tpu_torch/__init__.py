@@ -8,16 +8,22 @@ Ported so far: the dense QP layer with inequality and equality
 constraints, the forward solve and the implicit-KKT backward, in the
 float32 and the float64 default configurations (inverse and substitution
 mode, tracked and untracked residuals, warm starts), and the closed-form
-solver for nineq = 0. Entry points run on CUDA unless called with
+solver for nineq = 0; the diagonal structured tier (``solve_qp_diag``,
+``solve_qp_diag_full``, the opt-in fused step); ``SpQPFunction`` with its
+diagonal and dense dispatch; and the OptNet layers as ``torch.nn.Module``s
+(``qpth_tpu_torch.nn``). Entry points run on CUDA unless called with
 ``device="cpu"``.
 """
 
 from .config import (KKTSolver, QPSolution, QPSolutionLow, QPSolvers,
                      SolverConfig, SolveStats)
-from .convert import factors_from_numpy
+from . import nn
+from .convert import factors_from_numpy, optnet_params_from_numpy
+from .diagqp import solve_qp_diag, solve_qp_diag_full
 from .ops.kkt import KKTFactors
 from .qp import (QPFunction, prefactor_qp, solve_qp, solve_qp_eq,
                  solve_qp_full)
+from .sparse import SpQPFunction
 
 __all__ = [
     "KKTFactors",
@@ -28,9 +34,14 @@ __all__ = [
     "QPSolvers",
     "SolveStats",
     "SolverConfig",
+    "SpQPFunction",
     "factors_from_numpy",
+    "nn",
+    "optnet_params_from_numpy",
     "prefactor_qp",
     "solve_qp",
+    "solve_qp_diag",
+    "solve_qp_diag_full",
     "solve_qp_eq",
     "solve_qp_full",
 ]

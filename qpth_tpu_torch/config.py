@@ -76,7 +76,8 @@ class SolverConfig:
     solve_method: str = "auto"
     #: Lower clip for warm-start (s, z).
     warm_start_min: float = 1e-3
-    #: Fused diagonal-tier step (structured tier; not ported).
+    #: Fused diagonal-tier step: one ``diag_step`` kernel per iteration
+    #: (shared A, fit permitting) instead of the composed factor + solves.
     fused_diag_step: bool = False
     #: Exact residual recompute period; None = 1 at float64, 7 below.
     resid_every: int | None = None

@@ -1,9 +1,12 @@
-"""Carry the JAX package's cached factorization over to the port.
+"""Carry the JAX package's state over to the port.
 
 ``qpth_tpu.prefactor_qp`` returns the solver's only state that persists
 across calls: a ``KKTFactors`` with its ``Scaling``/``sem_scaling``. Both
 packages keep it batch-major with the same field names, so the arrays move
 as they are. The problem data (Q, p, G, h) is plain arrays already.
+
+The OptNet layers' parameters (a Flax parameter tree) move with
+:func:`optnet_params_from_numpy`.
 """
 
 from __future__ import annotations
@@ -49,3 +52,30 @@ def factors_from_numpy(arrays: dict, device) -> KKTFactors:
                       scaling=_scaling(arrays.get("scaling"), device),
                       sem_scaling=_scaling(arrays.get("sem_scaling"),
                                            device))
+
+
+def optnet_params_from_numpy(module, params):
+    """Load a Flax OptNet layer's parameters, as numpy arrays, into the
+    port's ``nn.OptNetSudoku`` or ``nn.OptNetClassifier`` (in place; each
+    array takes the module parameter's dtype and device). ``params`` is the
+    tree ``model.init`` returns, with or without its outer ``"params"``
+    key. A Flax ``Dense`` kernel is (in, out) and a ``torch.nn.Linear``
+    weight (out, in), so kernels are transposed. Returns the module."""
+    params = params.get("params", params)
+    if hasattr(module, "fc1"):
+        pairs = [(module.fc1.weight, params["Dense_0"]["kernel"].T),
+                 (module.fc1.bias, params["Dense_0"]["bias"]),
+                 (module.fc2.weight, params["Dense_1"]["kernel"].T),
+                 (module.fc2.bias, params["Dense_1"]["bias"])]
+        pairs += [(getattr(module, k), params[k])
+                  for k in ("L", "G", "z0", "s0")]
+    else:
+        pairs = [(module.A, params["A"])]
+    with torch.no_grad():
+        for dst, src in pairs:
+            src = torch.tensor(src)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"parameter shape {tuple(src.shape)} does "
+                                 f"not match the module's {tuple(dst.shape)}")
+            dst.copy_(src.to(dtype=dst.dtype, device=dst.device))
+    return module

@@ -148,6 +148,14 @@ __device__ T apply_inv(const T* Gm, const T* r, T* w, int m) {
   return x;
 }
 
+// The block's slice of an operand with batch 1 or B: bit `bit` of `batched`
+// set means batch B (else the one copy is read with batch stride 0).
+template <typename T>
+__device__ __forceinline__ const T* operand(const T* base, int batched, int bit,
+                                            long long b, size_t size) {
+  return base + ((batched & bit) ? size_t(b) * size : size_t(0));
+}
+
 // Largest step a with v + a dv >= 0 for one coordinate.
 template <typename T>
 __device__ __forceinline__ T step_of(T v, T dv) {

@@ -50,12 +50,6 @@ struct StepArgs {
   int m, nz, neq, batched, n_correctors;
 };
 
-template <typename T>
-__device__ __forceinline__ const T* operand(const T* base, int batched, int bit,
-                                            long long b, size_t size) {
-  return base + ((batched & bit) ? size_t(b) * size : size_t(0));
-}
-
 enum StepMode { kStepXFree, kStepX, kStepEq };
 
 template <typename T, int MODE>

@@ -13,6 +13,8 @@ solve on a factor that kernel A made.
 the direct x update.
 ``ipm_step_eq`` (``csrc/ipm_step_eq.cu``): one whole iteration with
 equality constraints (the S11/S21/W algebra, the y and x updates).
+``diag_step`` (``csrc/diag_step.cu``): one whole iteration of the
+diagonal-Q/G tier, M's factor and inverse included.
 
 Layout is batch-major throughout: matrices (b, rows, cols) with b in
 {1, B} (a shared matrix is read with batch stride 0), vectors (B, n), Linv
@@ -46,9 +48,15 @@ SMEM_EQ_VECTORS = 4
 #: Threads per block (``kThreads`` in csrc/common.cuh): bounds m as well.
 THREADS = 256
 
+#: n- and neq-vectors the diagonal-tier step keeps in shared memory beside
+#: M and its inverse factor (``kDiagNVectors``, ``kDiagEqVectors`` in
+#: csrc/diag_step.cu).
+DIAG_N_VECTORS = 10
+DIAG_EQ_VECTORS = 5
+
 LAUNCHES = {"factor_inv": 0, "factor_inv_solve": 0,
             "factor_inv_solve_rz": 0, "ipm_step_xfree": 0, "inv_solve": 0,
-            "ipm_step": 0, "ipm_step_eq": 0}
+            "ipm_step": 0, "ipm_step_eq": 0, "diag_step": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns: dict[str, object] = {}
@@ -69,6 +77,17 @@ def fits(m: int, dtype, nz: int = 0, neq: int = 0) -> bool:
     elt = torch.empty((), dtype=dtype).element_size()
     words = 2 * m * m + SMEM_VECTORS * m + nz + SMEM_EQ_VECTORS * neq
     return m <= THREADS and words * elt <= SMEM_LIMIT
+
+
+def diag_step_fits(n: int, neq: int, dtype) -> bool:
+    """Whether one QP of the diagonal-tier step fits a thread block: M and
+    its inverse factor (neq x neq each), DIAG_EQ_VECTORS neq-vectors and
+    DIAG_N_VECTORS n-vectors within 227 KB, 1 <= neq <= THREADS (neq = 0
+    never builds M; its step is elementwise). At neq = 40: n <= 5471 in
+    float32, n <= 2565 in float64."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    words = 2 * neq * neq + DIAG_EQ_VECTORS * neq + DIAG_N_VECTORS * n
+    return 1 <= neq <= THREADS and words * elt <= SMEM_LIMIT
 
 
 def _fn(stem: str, name: str, n_ptr: int, n_int: int):
@@ -447,3 +466,116 @@ def ipm_step_eq_plain(R, iGT, S21, W, iS11, S11, iAT, x, s, z, y, q, ip, rb,
     alpha2, dz, ds, dx, dy = _freeze(alpha2, dz, ds, dx, dy)
     return (x + alpha2 * dx, s + alpha2 * ds, z + alpha2 * dz,
             y + alpha2 * dy, alpha2.squeeze(-1))
+
+
+# ---------------------------------------------------------------------------
+# Kernel 11: diag_step, the diagonal-Q/G tier's whole iteration
+# ---------------------------------------------------------------------------
+
+def diag_step(M, A, g, H, rx, rz, ry, x, s, z, y, n_correctors: int = 0):
+    """One Mehrotra iteration of the diagonal-Q/G tier on the assembled
+    M = A diag(1/H) A^T: M's factor and inverse (no diagonal shift), the
+    predictor, corrector and Gondzio solves through it, the step to the
+    boundary and the NaN-frozen update. M (1 or B, neq, neq), A (1 or B,
+    neq, n), g (1 or B, n), each with its own batch; H, rx, rz, x, s, z
+    (B, n); ry, y (B, neq). Returns (x', s', z', y').
+
+    Replaces the TPU kernel
+    ``qpth_tpu/ops/pallas/diagstep.py::diag_step_lanes``. At the sudoku
+    layer's width (B = 4096, n = 64, neq = 40, float32) it is bound by
+    bytes: M's triangle, A once and the vectors, ~25 MB (>= 0.0074 ms).
+    One block per QP keeps M and its inverse factor in shared memory with
+    the n- and neq-vectors; A is read from device memory (L2 when shared);
+    see csrc/diag_step.cu."""
+    B, n = x.shape
+    neq = y.shape[-1]
+    if g.dim() != 2 or g.shape[-1] != n or g.shape[0] not in (1, B):
+        raise ValueError(f"diag_step: g must be (1 or {B}, {n}), "
+                         f"got {tuple(g.shape)}")
+    _check("diag_step", M, (ry, y), B, neq, mats=((A, neq, n),),
+           more_vecs=tuple((v, n) for v in (H, rx, rz, x, s, z)),
+           tiles=False)
+    if g.dtype != M.dtype or g.device != M.device or not g.is_contiguous():
+        raise ValueError("diag_step: g must share M's dtype and device and "
+                         "be contiguous")
+    if M.device.type == "cpu":
+        return diag_step_plain(M, A, g, H, rx, rz, ry, x, s, z, y,
+                               n_correctors)
+    if not diag_step_fits(n, neq, M.dtype):
+        raise ValueError(f"diag_step: n = {n}, neq = {neq} exceeds the "
+                         f"one-block shared memory fit for {M.dtype}")
+    fn = _fn("diag_step", f"qpth_diag_step_{_SUFFIX[M.dtype]}", 15, 5)
+    outs = tuple(torch.empty_like(v) for v in (x, s, z, y))
+    ptrs = [t.data_ptr() for t in (M, A, g, H, rx, rz, ry, x, s, z, y)
+            + outs]
+    batched = sum(1 << k for k, T in enumerate((M, A, g))
+                  if B > 1 and T.shape[0] == B)
+    with torch.cuda.device(M.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*ptrs, B, n, neq, batched, int(n_correctors), stream)
+    _launch_error("diag_step", err)
+    LAUNCHES["diag_step"] += 1
+    return outs
+
+
+def diag_step_plain(M, A, g, H, rx, rz, ry, x, s, z, y,
+                    n_correctors: int = 0):
+    """Plain PyTorch version of :func:`diag_step` (the algebra of
+    ``diagstep.py:58-160``, batch-major, in the same order): kernel A's
+    recurrence with dinv = 0 for M's inverse factor, then triangular
+    applies."""
+    B, n = x.shape
+    G = factor_inv_plain(M, torch.zeros(y.shape, dtype=M.dtype,
+                                        device=M.device))
+    AT = A.transpose(-1, -2)
+    d = z / s
+
+    def newton(rt, ry_):
+        rhs = _mv(A, rt / H)
+        if ry_ is not None:
+            rhs = rhs + ry_
+        dy_ = _apply_inv(G, rhs)
+        return (rt - _mv(AT, dy_)) / H, dy_
+
+    def step_min(dz_, ds_):
+        return torch.minimum(_step(z, dz_), _step(s, ds_))
+
+    one = torch.ones((), dtype=s.dtype, device=s.device)
+    # Predictor: rs = z.
+    dx_a, dy_a = newton(-rx + g * z - g * d * rz, ry)
+    ds_a = -rz - g * dx_a
+    dz_a = -z - d * ds_a
+    alpha = torch.minimum(step_min(dz_a, ds_a), one)
+    t2 = (s * z).sum(dim=-1, keepdim=True)
+    t1 = ((s + alpha * ds_a) * (z + alpha * dz_a)).sum(dim=-1, keepdim=True)
+    ratio = t1 / t2
+    sig = ratio * ratio * ratio
+    mu = t2.abs() / n
+
+    # Corrector: RHS zero except rs.
+    rs_c = (-(mu * sig) + ds_a * dz_a) / s
+    dx_c, dy_c = newton(g * rs_c, None)
+    ds_c = -g * dx_c
+    dz_c = -rs_c - d * ds_c
+    dx, ds, dz, dy = dx_a + dx_c, ds_a + ds_c, dz_a + dz_c, dy_a + dy_c
+
+    for _ in range(n_correctors):
+        a_g = torch.minimum(step_min(dz, ds), one)
+        a_t = torch.minimum(1.08 * a_g + 0.08, one)
+        v = (s + a_t * ds) * (z + a_t * dz)
+        mu_t = sig * mu
+        rs_g = (v - torch.minimum(torch.maximum(v, 0.1 * mu_t),
+                                  10.0 * mu_t)) / s
+        dx_g, dy_g = newton(g * rs_g, None)
+        ds_g = -g * dx_g
+        dz_g = -rs_g - d * ds_g
+        dz_n, ds_n = dz + dz_g, ds + ds_g
+        acc = torch.minimum(step_min(dz_n, ds_n), one) > a_g
+        dz = torch.where(acc, dz_n, dz)
+        ds = torch.where(acc, ds_n, ds)
+        dx = torch.where(acc, dx + dx_g, dx)
+        dy = torch.where(acc, dy + dy_g, dy)
+
+    alpha2 = torch.minimum(0.999 * step_min(dz, ds), one)
+    alpha2, dx, ds, dz, dy = _freeze(alpha2, dx, ds, dz, dy)
+    return x + alpha2 * dx, s + alpha2 * ds, z + alpha2 * dz, y + alpha2 * dy

@@ -233,3 +233,93 @@ def test_solve_on_card_matches_cpu(cuda):
     on_cpu = qt.solve_qp_full(*args, config=cfg, device="cpu")
     assert int(on_card.stats.iterations) == int(on_cpu.stats.iterations)
     assert (on_card.z.cpu() - on_cpu.z).abs().max().item() < 1e-8
+
+
+def _diag_step_operands(B, n, neq, g_batched, dtype, device, nan_lane=None):
+    """One interior iterate of a diagonal-tier QP and M = A diag(1/H) A^T
+    from it; ``nan_lane`` gets a non-SPD M."""
+    g_ = torch.Generator().manual_seed(n * 1000 + neq)
+
+    def r(*shape):
+        return torch.rand(*shape, generator=g_, dtype=torch.float64)
+
+    A = r(1, neq, n) - 0.5
+    g = -(0.5 + r(B if g_batched else 1, n))
+    s, z = 0.5 + r(B, n), 0.5 + r(B, n)
+    H = 0.5 + r(B, n) + g * g * z / s
+    M = torch.matmul(A * (1.0 / H).unsqueeze(-2), A.transpose(-1, -2))
+    if nan_lane is not None:
+        M[nan_lane] = -M[nan_lane]
+    vecs = [r(B, n) - 0.5, r(B, n) - 0.5, r(B, neq) - 0.5, r(B, n) - 0.5,
+            s, z, r(B, neq) - 0.5]                # rx, rz, ry, x, s, z, y
+    return [t.to(dtype=dtype, device=device).contiguous()
+            for t in [M, A, g, H] + vecs]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("g_batched", [False, True])
+@pytest.mark.parametrize("n_correctors", [0, 2])
+@pytest.mark.parametrize("shape", [(64, 40), (300, 20), (1, 1)], ids=str)
+def test_diag_step_kernel_matches_plain(cuda, shape, n_correctors,
+                                        g_batched, dtype):
+    """Kernel 11 at the sudoku shape, at n = 300 (more than the block's
+    threads) and at n = neq = 1; lane 5 has a non-SPD M and must come back
+    unchanged from both."""
+    n, neq = shape
+    args = _diag_step_operands(16, n, neq, g_batched, dtype, cuda,
+                               nan_lane=5)
+    kernels.reset_launches()
+    got = kernels.diag_step(*args, n_correctors)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["diag_step"] == 1
+    want = kernels.diag_step_plain(*args, n_correctors)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        scale = max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= TOL[dtype] * 10 * scale
+    for a, v in zip(got, (args[7], args[8], args[9], args[10])):
+        assert torch.equal(a[5], v[5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_m_factor_and_solve_kernels_at_neq_40(cuda, dtype):
+    """Kernels A (dinv = 0) and inv_solve on the sudoku layer's M."""
+    M = _diag_step_operands(64, 64, 40, False, dtype, cuda)[0]
+    zero = torch.zeros(64, 40, dtype=dtype, device=cuda)
+    rhs = _vecs(64, 40, dtype, cuda)[0]
+    Linv = kernels.factor_inv(M, zero)
+    torch.cuda.synchronize()
+    want = kernels.factor_inv_plain(M, zero)
+    scale = want.abs().max().item()
+    assert (Linv - want).abs().max().item() <= TOL[dtype] * 10 * scale
+    x = kernels.inv_solve(Linv, rhs)
+    xw = kernels.inv_solve_plain(Linv, rhs)
+    assert (x - xw).abs().max().item() <= TOL[dtype] * xw.abs().max().item()
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_diag_solve_on_card_matches_cpu(cuda, fused):
+    """The diagonal tier in float64, composed and fused steps: the card
+    against the CPU, forward and the gradient to the shared A."""
+    r = np.random.RandomState(2)
+    n, neq, B = 64, 40, 16
+    A = r.rand(neq, n)
+    x0 = r.rand(B, n) + 0.1
+    data = (np.full(n, 0.1), -(r.rand(B, n) < 0.25).astype(float),
+            np.full(n, -1.0), np.zeros(n), A, x0 @ A.T)
+    cfg = qt.SolverConfig(eps=1e-9, fused_diag_step=fused)
+    out = {}
+    for device in ("cuda", "cpu"):
+        args = [torch.tensor(v, device=device) for v in data]
+        args[4].requires_grad_(True)
+        kernels.reset_launches()
+        sol = qt.solve_qp_diag_full(*args, config=cfg, device=device)
+        z = qt.solve_qp_diag(*args, config=cfg, device=device)
+        (z * z).sum().backward()
+        out[device] = (sol, args[4].grad.cpu(), dict(kernels.LAUNCHES))
+    (sc, gc, lc), (sh, gh, _) = out["cuda"], out["cpu"]
+    assert int(sc.stats.iterations) == int(sh.stats.iterations)
+    for name in ("z", "nu", "lam", "s"):
+        assert (getattr(sc, name).cpu() - getattr(sh, name)).abs().max() < 1e-8
+    assert (gc - gh).abs().max().item() <= 1e-7 * gh.abs().max().item()
+    assert lc["diag_step" if fused else "inv_solve"] > 0

@@ -94,6 +94,40 @@ def test_no_silent_cpu_fallback(entry, monkeypatch):
             getattr(qt, entry)(Q, p, G, h)
 
 
+def _diag_args():
+    r = np.random.RandomState(5)
+    return [torch.tensor(v) for v in (
+        np.full(6, 0.5), r.randn(4, 6), np.full(6, -1.0), np.ones(6),
+        r.rand(2, 6), r.rand(2))]
+
+
+@pytest.mark.parametrize("entry", ["solve_qp_diag", "solve_qp_diag_full",
+                                   "SpQPFunction", "OptNetSudoku",
+                                   "OptNetClassifier"])
+def test_no_silent_cpu_fallback_slice3(entry, monkeypatch):
+    """The diagonal tier, SpQPFunction and the layers raise without CUDA
+    unless given device="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if entry == "SpQPFunction":
+            ii = np.stack([np.arange(3), np.arange(3)])
+            f = qt.SpQPFunction(ii, (3, 3), ii, (3, 3),
+                                np.zeros((2, 0), int), (0, 3))
+            f(*(torch.ones(2, 3) for _ in range(4)), torch.ones(2, 0),
+              torch.ones(2, 0))
+        elif entry == "OptNetSudoku":
+            qt.nn.OptNetSudoku()
+        elif entry == "OptNetClassifier":
+            qt.nn.OptNetClassifier(4, 4, 2)
+        else:
+            getattr(qt, entry)(*_diag_args())
+    # ... and solve there when asked for the CPU.
+    kernels.reset_launches()
+    z = qt.solve_qp_diag(*_diag_args(), device="cpu")
+    assert bool(torch.isfinite(z).all())
+    assert all(v == 0 for v in kernels.LAUNCHES.values())
+
+
 def test_cpu_solve_counts_no_launch():
     kernels.reset_launches()
     Q, p, G, h = _qp()
