@@ -20,7 +20,10 @@ through the kernels at full width (B = 4096, float32 unless said):
   equality rows;
 * path 5: the sudoku layer's QP on the diagonal structured tier
   (``solve_qp_diag``, with and without the fused ``diag_step``),
-  ``SpQPFunction`` on its COO patterns, and ``nn.OptNetSudoku``.
+  ``SpQPFunction`` on its COO patterns, and ``nn.OptNetSudoku``;
+* path 6: ``use_pallas="blocked"``, the Cholesky-factor backend (kernels C,
+  D and E): bench.py's workload in float32 inverse mode and the OptNet
+  pattern, path 1's data in float32 substitution mode, both in float64.
 
 It checks the results against float64 solves on the card and on the CPU
 and times kernels and solves with CUDA events. Any failed check exits
@@ -198,7 +201,9 @@ def main():
                             dtype=torch.float64) + 0.5).to(dtype)
                 for _ in range(k)]
 
-    errs = {k: 0.0 for k in kernels.LAUNCHES}
+    # Kernel C's variants are keyed apart: with the shift (T's factor),
+    # without it (Q's and S11's factors), with the fused solve.
+    errs = {k: 0.0 for k in list(kernels.LAUNCHES) + ["chol_shift"]}
 
     def compare(tag, got, want, tol, key=None):
         """Every output within tol * max(1, max |plain|) of the plain
@@ -413,6 +418,78 @@ def main():
                       for o, a_ in zip(got, args[7:])),
                   "diag_step: the lane with a non-SPD M was not frozen")
     del args, got
+
+    # Kernels C (chol), D (cho_solve) and E (trinv): float32 and float64 at
+    # the main shape m = 100 (B = 4096), at an odd m = 37 and at the
+    # largest m chol_fits allows (B = 64), with R batched and shared, with
+    # and without the shift and the rhs; one lane of the batched R is not
+    # SPD and must come back NaN in that lane alone.
+    m_max = {torch.float32: 239, torch.float64: 168}
+    for dtype in (torch.float32, torch.float64):
+        check(kernels.chol_fits(m_max[dtype], dtype)
+              and not kernels.chol_fits(m_max[dtype] + 1, dtype),
+              f"chol_fits' largest m for {dtype}")
+        tol = TOL_F32 if dtype == torch.float32 else TOL_F64
+        for nb, m_ in ((B, NINEQ), (64, 37), (64, m_max[dtype])):
+            for shared in (False, True):
+                R_ = spd(1 if shared else nb, m_, dtype, 110)
+                dinv_, rhs_ = vecs(nb, m_, dtype, 111, k=2)
+                if not shared:
+                    R_[3] = -R_[3]                # lane 3 is not SPD
+                for key, args in (
+                        ("chol", (R_.expand(nb, m_, m_).contiguous(),)
+                         if shared else (R_,)),
+                        ("chol_shift", (R_, dinv_)),
+                        ("chol_solve", (R_, dinv_, rhs_ - 1.0)),
+                        ("chol_solve", (R_, None, rhs_ - 1.0))):
+                    got = kernels.chol(*args)
+                    torch.cuda.synchronize()
+                    want = kernels.chol_plain(*args)
+                    got_t = got if isinstance(got, tuple) else (got,)
+                    want_t = want if isinstance(want, tuple) else (want,)
+                    bad = torch.isnan(got_t[0]).any(dim=(1, 2))
+                    nan_ok = (bool(bad[3]) and int(bad.sum()) == 1
+                              if not shared else not bool(bad.any()))
+                    check(nan_ok and all(
+                        bool(torch.equal(torch.isnan(a), torch.isnan(b_)))
+                        for a, b_ in zip(got_t, want_t)),
+                        f"{key}: the non-SPD lane is not NaN alone")
+                    keep = ~bad
+                    compare(f"{key} {dtype} B={nb} m={m_} shared={shared}"
+                            f" shift={args[1] is not None if len(args) > 1 else False}"
+                            f" (lane 3 NaN: {not shared})",
+                            tuple(a[keep] for a in got_t),
+                            tuple(b_[keep] for b_ in want_t), tol,
+                            key if (nb, m_, dtype) == (B, NINEQ,
+                                                       torch.float32)
+                            else None)
+                    check(not bool(torch.tril(got_t[0][keep], -1).any()),
+                          f"{key}: nonzero entries below the diagonal")
+        # Kernel D on T's factor (batched Lt) and on a shared lower factor
+        # (L_Q of the OptNet pattern), at n = 100 and n = 37; kernel E.
+        for nb, n_ in ((B, NINEQ), (64, 37)):
+            for shared in (False, True):
+                Lt_ = kernels.chol(spd(1 if shared else nb, n_, dtype, 112))
+                v_ = vecs(nb, n_, dtype, 113, k=1)[0] - 1.0
+                for lower in (False, True):
+                    F_ = Lt_.transpose(1, 2).contiguous() if lower else Lt_
+                    got = kernels.cho_solve(F_, v_, lower=lower)
+                    torch.cuda.synchronize()
+                    compare(f"cho_solve {dtype} B={nb} n={n_} "
+                            f"shared={shared} lower={lower}", got,
+                            kernels.cho_solve_plain(F_, v_, lower), tol,
+                            "cho_solve" if (nb, n_, shared, dtype)
+                            == (B, NINEQ, False, torch.float32) else None)
+            Lt_ = kernels.chol(spd(nb, n_, dtype, 114))
+            got = kernels.trinv(Lt_)
+            torch.cuda.synchronize()
+            compare(f"trinv {dtype} B={nb} n={n_}", got,
+                    kernels.trinv_plain(Lt_), tol,
+                    "trinv" if (nb, n_, dtype) == (B, NINEQ, torch.float32)
+                    else None)
+            check(not bool(torch.triu(got, 1).any()),
+                  "trinv: nonzero entries above the diagonal")
+    del R_, dinv_, rhs_, Lt_, F_, v_, got, want
 
     # ---- phase 3: forward at full width through the kernels ----
     Q, p, G, h = make_problem(B, NZ, NINEQ, seed=0)
@@ -1247,6 +1324,116 @@ def main():
                    card_vs_cpu_f64=e_layer))
     del sol5_64, sol5_64f, layer, out5, score
 
+    # ---- phase 9c (path 6): the Cholesky-factor backend, "blocked" ----
+    # T's factor by kernel C with its first solve, every further solve on
+    # it by kernel D; in substitution mode also the factors of Q and S11 by
+    # kernel C and their solves by kernel D. No fused step.
+    cfg6 = qt.SolverConfig(check_Q_spd=False, use_pallas="blocked")
+    cfg6s = dataclasses.replace(cfg6, solve_method="subst")
+    cfg6_e9 = dataclasses.replace(cfg6, eps=1e-9, refine_steps=0)
+    kernel_a = ("factor_inv", "factor_inv_solve", "factor_inv_solve_rz")
+    fused = ("ipm_step", "ipm_step_eq", "ipm_step_xfree", "inv_solve")
+
+    def blocked_counts(tag, launches, its_, n_factor_inv, n_chol, solves,
+                       init_solves=0):
+        """Kernel C with rhs once per scored iteration (the init's, then
+        one per stepped iteration), kernel D ``init_solves`` times in the
+        init and ``solves`` times per stepped iteration, ``n_chol`` plain
+        factors (Q, S11), ``n_factor_inv`` kernel A launches, no fused
+        step."""
+        stepped = launches["chol_solve"] - 1
+        check(stepped in (its_ - 1, its_) and stepped > 0
+              and launches["cho_solve"] == init_solves + solves * stepped
+              and launches["chol"] == n_chol
+              and sum(launches[k] for k in kernel_a) == n_factor_inv
+              and not any(launches[k] for k in fused),
+              f"{tag}: launches {launches} are not the blocked path's "
+              f"({its_} iterations)")
+        return stepped
+
+    # (a) float32 inverse mode on the bench workload: kernel A once for
+    # Q^-1, then kernel C with rhs and kernel D per iteration.
+    sol6, l6, its6 = drive(f"phase 9c (path 6a): blocked f32 B={B}", f32,
+                           cfg6)
+    blocked_counts("path 6a", l6, its6, 1, 0, 1 + cfg6.n_correctors)
+    med6 = f32_error("phase 9c (path 6a)", sol6.z, (Q, p, G, h), cfg64)
+    kernels.reset_launches()
+    _, g6 = grads_of(f32, cfg6, dev)
+    torch.cuda.synchronize()
+    l6_fb = dict(kernels.LAUNCHES)
+    print(f"# phase 9c (path 6a): forward+backward launches "
+          f"{ {k: v for k, v in l6_fb.items() if v} }")
+    check(all(bool(torch.isfinite(g_).all()) for g_ in g6)
+          and l6_fb["chol_solve"] == l6["chol_solve"] + 1
+          and l6_fb["cho_solve"] == l6["cho_solve"],
+          "path 6a: the backward did not run one kernel C with rhs to "
+          "finite gradients")
+    sol6o, l6o, its6o = drive(f"phase 9c (path 6a): blocked OptNet pattern "
+                              f"f32 B={B}", sh32, cfg6)
+    blocked_counts("path 6a OptNet", l6o, its6o, 1, 0,
+                   1 + cfg6.n_correctors)
+    med6o = f32_error("phase 9c (path 6a OptNet)", sol6o.z, shared, cfg64)
+    del g6, sol6o
+
+    # (b) float32 substitution mode on path 1's data: every T, Q and S11
+    # solve in kernel D, the factors of Q and S11 in kernel C; kernel A
+    # never runs.
+    sol6b, l6b, its6b = drive(f"phase 9c (path 6b): blocked subst f32 "
+                              f"B={B} neq={NEQ}", eq32, cfg6s)
+    # Per stepped iteration: Q and S11 before T's solve, Q after it, then
+    # T and Q for the corrector (and each Gondzio correction); the init's
+    # solve has the first three.
+    blocked_counts("path 6b", l6b, its6b, 0, 2,
+                   3 + 2 * (1 + cfg6s.n_correctors), 3)
+    med6b = f32_error("phase 9c (path 6b, not gated)", sol6b.z, eq_np,
+                      cfg64, limit=None)
+    kernels.reset_launches()
+    _, g6b = grads_of(eq32, cfg6s, dev)
+    torch.cuda.synchronize()
+    l6b_fb = dict(kernels.LAUNCHES)
+    print(f"# phase 9c (path 6b): forward+backward launches "
+          f"{ {k: v for k, v in l6b_fb.items() if v} }")
+    check(not any(l6b_fb[k] for k in kernel_a)
+          and all(bool(torch.isfinite(g_).all()) for g_ in g6b),
+          "path 6b: kernel A ran, or the gradients are not finite")
+    del g6b, sol6b
+
+    # (c) float64 (substitution mode by default) on the bench data and on
+    # path 1's: card against CPU, and against the port's own float64
+    # default on the card (kernel A and kernel 5) at eps = 1e-9.
+    cvc6, def6, l6c = {}, {}, {}
+    for key, arrs_np in (("bench", (Q, p, G, h)), ("eq", eq_np)):
+        d64 = tensors(arrs_np, torch.float64, dev)
+        tag = f"phase 9c (path 6c, {key}) f64 B={B}"
+        sol_b, l_, its_b = drive(tag + " blocked, eps=1e-9", d64, cfg6_e9)
+        n_fac = 2 if key == "eq" else 1          # Q (and S11)
+        blocked_counts(f"path 6c {key}", l_, its_b, 0, n_fac,
+                       n_fac + 1 + 2 * (1 + cfg6_e9.n_correctors), n_fac + 1)
+        sol_d, _, its_d = drive(tag + " default (kernel A + kernel 5), "
+                                "eps=1e-9", d64, cfg_d64_e9)
+        e_d = rel(sol_b.z, sol_d.z)
+        print(f"# {tag}: blocked against the default on the card: z "
+              f"{e_d:.3e}, iterations {its_b} / {its_d}")
+        check(e_d <= 1e-9 and its_b == its_d,
+              f"path 6c {key}: blocked and default f64 part")
+        kernels.reset_launches()
+        _, g_ = grads_of(d64, cfg6, dev)
+        torch.cuda.synchronize()
+        l6c[key] = dict(forward=l_, forward_backward=dict(kernels.LAUNCHES))
+        check(all(bool(torch.isfinite(x_).all()) for x_ in g_),
+              f"path 6c {key}: gradients not finite")
+        cvc6[key] = card_vs_cpu(tag + " eps=1e-9", arrs_np, cfg6_e9,
+                                "QpGhAb"[:len(arrs_np)])
+        def6[key] = dict(z=e_d, iterations=(its_b, its_d))
+        del d64, sol_b, sol_d, g_
+    path_launches["path6_blocked"] = dict(
+        a_forward=l6, a_forward_backward=l6_fb, a_optnet_forward=l6o,
+        b_forward=l6b, b_forward_backward=l6b_fb, c=l6c)
+    path_facts["path6_blocked"] = dict(
+        iterations=dict(a=its6, a_optnet=its6o, b=its6b),
+        f32_median_rel_err=dict(a=med6, a_optnet=med6o, b_not_gated=med6b),
+        card_vs_cpu=cvc6, against_f64_default=def6)
+
     # ---- phase 10: timings (CUDA events, median of REPS after warm-up) ----
     def cuda_ms(fn, reps=REPS, warm=3):
         for _ in range(warm):
@@ -1481,6 +1668,111 @@ def main():
     del args11, M5, Linv5, eye5
     del mats, v, Linv, Linv64, R64, step_args, eq_args
 
+    # Kernels C, D and E at the main shape (B = 4096, m = 100), float32 and
+    # float64. Bounds count R and the factors by their triangles; the
+    # Cholesky factor and the triangular inverse take m^3 / 3 flops each,
+    # the two substitutions 2 m^2.
+    def chol_facts(dtype):
+        elt_ = torch.empty((), dtype=dtype).element_size()
+        peak = f32_peak if dtype == torch.float32 else f64_peak
+        R_ = spd(B, m, dtype, 120)
+        dinv_, rhs_ = vecs(B, m, dtype, 121, k=2)
+        rhs_ = rhs_ - 1.0
+        T_ = R_ + torch.diag_embed(dinv_)
+        Lt_ = kernels.chol(R_, dinv_)
+        L_ = Lt_.transpose(1, 2).contiguous()
+        LQ_ = L_[:1].contiguous()            # a shared lower factor (L_Q)
+        eye_ = torch.eye(m, dtype=dtype, device=dev).expand(B, m, m)
+        tri_b, vec_b = tri * elt_, B * m * elt_
+
+        def lib_chol_solve():
+            Lc, _ = torch.linalg.cholesky_ex(T_)
+            return torch.cholesky_solve(rhs_.unsqueeze(-1), Lc)
+
+        specs = {
+            "chol_shift": (
+                lambda: kernels.chol(R_, dinv_),
+                lambda: kernels.chol_plain(R_, dinv_),
+                lambda: torch.linalg.cholesky_ex(T_),
+                "torch.linalg.cholesky_ex of R + diag(dinv)",
+                2 * tri_b + vec_b, B * m ** 3 / 3),
+            "chol": (
+                lambda: kernels.chol(R_), lambda: kernels.chol_plain(R_),
+                lambda: torch.linalg.cholesky_ex(R_),
+                "torch.linalg.cholesky_ex", 2 * tri_b, B * m ** 3 / 3),
+            "chol_solve": (
+                lambda: kernels.chol(R_, dinv_, rhs_),
+                lambda: kernels.chol_plain(R_, dinv_, rhs_), lib_chol_solve,
+                "torch.linalg.cholesky_ex + torch.cholesky_solve (two calls)",
+                2 * tri_b + 3 * vec_b, B * (m ** 3 / 3 + 2 * m * m)),
+            "cho_solve": (
+                lambda: kernels.cho_solve(Lt_, rhs_),
+                lambda: kernels.cho_solve_plain(Lt_, rhs_),
+                lambda: torch.cholesky_solve(rhs_.unsqueeze(-1), L_),
+                "torch.cholesky_solve", tri_b + 2 * vec_b, B * 2 * m * m),
+            "cho_solve_shared_lower": (
+                lambda: kernels.cho_solve(LQ_, rhs_, lower=True),
+                lambda: kernels.cho_solve_plain(LQ_, rhs_, lower=True),
+                lambda: torch.cholesky_solve(rhs_.T, LQ_[0]),
+                "torch.cholesky_solve on the shared factor, B right-hand "
+                "sides in one call", m * (m + 1) // 2 * elt_ + 2 * vec_b,
+                B * 2 * m * m),
+            "trinv": (
+                lambda: kernels.trinv(Lt_), lambda: kernels.trinv_plain(Lt_),
+                lambda: torch.linalg.solve_triangular(L_, eye_, upper=False),
+                "torch.linalg.solve_triangular(L, I)", 2 * tri_b,
+                B * m ** 3 / 3),
+        }
+        out = {}
+        for key, (k_fn, p_fn, l_fn, l_name, nbytes, flops) in specs.items():
+            b_ms, b_by = bound(nbytes, flops, peak)
+            out[key] = dict(ms=cuda_ms(k_fn), plain_ms=cuda_ms(p_fn),
+                            bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
+                            library_ms=cuda_ms(l_fn), library_call=l_name)
+            print(f"# phase 10: {key} {dtype}: {out[key]['ms']:.3f} ms "
+                  f"(plain {out[key]['plain_ms']:.3f} ms, bound {b_ms:.4f} "
+                  f"ms by {b_by}, {nbytes / 1e6:.1f} MB, library "
+                  f"{out[key]['library_ms']:.3f} ms: {l_name}) at B={B} "
+                  f"m={m}")
+        return out
+
+    cf32, cf64 = chol_facts(torch.float32), chol_facts(torch.float64)
+    la6 = path_launches["path6_blocked"]["a_forward_backward"]
+    lb6 = path_launches["path6_blocked"]["b_forward_backward"]
+    fused_note = ("path 6a forward+backward; every launch of kernel C with "
+                  "the shift on that path carries its first solve (the "
+                  "chol_solve variant)")
+    for line, src, fn_name, key, launches, note in (
+            ("lanes.py:225", "chol.cu", "factor_kkt_lanes", "chol_shift",
+             la6["chol_solve"], fused_note + "; time shared with "
+             "factor_kkt_t_pallas"),
+            ("lanes.py:258", "chol.cu", "factor_solve_kkt_lanes",
+             "chol_solve", la6["chol_solve"], "path 6a forward+backward"),
+            ("lanes.py:1240", "cho_solve.cu", "cho_solve_lanes", "cho_solve",
+             la6["cho_solve"], "path 6a forward+backward; time shared with "
+             "cho_solve_vec_t_pallas"),
+            ("cholesky.py:134", "chol.cu", "cholesky_t_pallas", "chol",
+             lb6["chol"], "path 6b forward+backward: the factors of Q and "
+             "S11 (substitution mode)"),
+            ("cholesky.py:171", "chol.cu", "factor_kkt_t_pallas",
+             "chol_shift", la6["chol_solve"], fused_note),
+            ("cholesky.py:255", "trinv.cu", "trinv_pallas", "trinv", 0,
+             "on no solver path, as in the JAX package (tests, spd_inverse)"),
+            ("cholesky.py:316", "cho_solve.cu", "cho_solve_vec_t_pallas",
+             "cho_solve", la6["cho_solve"], "path 6a forward+backward; "
+             "float32 and float64 on a shared lower factor (L_Q) beside")):
+        f_ = cf32[key]
+        row = dict(name=f"{key} ({fn_name})", route="cuda",
+                   source=f"qpth_tpu_torch/csrc/{src}",
+                   replaces=f"qpth_tpu/ops/pallas/{line}", launches=launches,
+                   launches_note=note, max_abs_err=errs[key], **f_,
+                   float64=cf64[key])
+        if key == "cho_solve":
+            row["shared_lower"] = dict(float32=cf32["cho_solve_shared_lower"],
+                                       float64=cf64["cho_solve_shared_lower"])
+        rows.append(row)
+    check(len(rows) == 15, f"the kernels line has {len(rows)} rows, not 15")
+
     spread = {}
 
     def host_ms(fn, reps=5):
@@ -1560,6 +1852,31 @@ def main():
             lambda: qt.solve_qp_diag_full(*d32, config=cfg5f)), its5b),
         b_forward_backward_ms=report("path5 (b) forward+backward", host_ms(
             lambda: diag_grads(d32, cfg5f, dev))))
+    p6 = dict(
+        a_forward_ms=report("path6 (a) blocked forward", host_ms(
+            lambda: qt.solve_qp_full(*f32, config=cfg6)), its6),
+        a_forward_backward_ms=report("path6 (a) forward+backward", host_ms(
+            lambda: grads_of(f32, cfg6, dev))),
+        a_optnet_forward_ms=report("path6 (a) OptNet pattern forward",
+                                   host_ms(lambda: qt.solve_qp_full(
+                                       *sh32, config=cfg6)), its6o),
+        b_forward_ms=report("path6 (b) blocked subst forward", host_ms(
+            lambda: qt.solve_qp_full(*eq32, config=cfg6s)), its6b),
+        b_forward_backward_ms=report("path6 (b) forward+backward", host_ms(
+            lambda: grads_of(eq32, cfg6s, dev))))
+    for key, arrs_np in (("bench", (Q, p, G, h)), ("eq", eq_np)):
+        d64 = tensors(arrs_np, torch.float64, dev)
+        p6[f"c_{key}_iterations"] = int(qt.solve_qp_full(
+            *d64, config=cfg6).stats.iterations)
+        p6[f"c_{key}_forward_ms"] = report(
+            f"path6 (c) f64 blocked {key} forward", host_ms(
+                lambda: qt.solve_qp_full(*d64, config=cfg6)),
+            p6[f"c_{key}_iterations"])
+        p6[f"c_{key}_forward_backward_ms"] = report(
+            f"path6 (c) f64 blocked {key} forward+backward", host_ms(
+                lambda: grads_of(d64, cfg6, dev)))
+        del d64
+    paths_ms["path6_blocked"] = p6
 
     # Device time of one forward+backward by kernel (torch.profiler), and
     # the share of the wall time the device was idle: the neq = 0 main
@@ -1602,6 +1919,7 @@ def main():
     trace1 = trace_of("path 1", lambda: grads_of(eq32, cfg, dev))
     trace5 = {k: trace_of(f"path 5 ({k})", lambda: diag_grads(d32, c_, dev))
               for k, c_ in (("a", cfg5), ("b", cfg5f))}
+    trace6 = trace_of("path 6 (a)", lambda: grads_of(f32, cfg6, dev))
 
     # ---- phase 11: result lines ----
     for key in paths_ms:
@@ -1609,6 +1927,7 @@ def main():
                              **path_facts[key])
     paths_ms["path1_eq_batched"]["trace"] = trace1
     paths_ms["path5_diag"]["trace"] = trace5
+    paths_ms["path6_blocked"]["trace"] = trace6
     print(json.dumps({"kernels": rows, "end_to_end": {
         "forward_ms": fwd_ms, "forward_backward_ms": fb_ms,
         "forward_qps": B / fwd_ms * 1e3,

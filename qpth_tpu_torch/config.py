@@ -1,10 +1,19 @@
 """Solver configuration and statistics.
 
 Counterpart of ``qpth_tpu/config.py``. ``SolverConfig`` keeps the JAX
-package's fields and defaults minus the two that only meant something on a
-TPU: ``use_pallas`` (here the device of the tensors picks the kernels: CUDA
-tensors launch them, CPU tensors take their plain PyTorch versions) and
-``axis_name`` (shard_map collectives).
+package's fields and defaults minus ``axis_name`` (shard_map collectives,
+a TPU-mesh notion). ``use_pallas`` picks the KKT backend, not the device:
+the device of the tensors picks kernel or plain version (CUDA tensors
+launch the kernels, CPU tensors take their plain PyTorch versions), so the
+JAX package's library-only values have no counterpart here:
+
+* ``"auto"``, ``True``, ``"lanes"``: the kernels backend (factor-inverse
+  kernel A, the fused steps);
+* ``"blocked"``: the Cholesky-factor backend (kernel C's factor, kernel D's
+  substitutions; the JAX package's ``pallas_blocked_backend``);
+* ``False``, ``"xla"``: ``NotImplementedError`` (no library-only path);
+* ``"hybrid"``, ``"hybrid_xla"``: ``NotImplementedError`` naming their
+  ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,6 +45,11 @@ class QPSolvers(enum.Enum):
     CPU_ORACLE = 2
     #: Alias kept for API familiarity with upstream qpth.
     CVXPY = 2
+
+
+#: The string values of ``SolverConfig.use_pallas`` (the JAX package's).
+USE_PALLAS_VALUES = ("auto", "lanes", "blocked", "xla", "hybrid",
+                     "hybrid_xla")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +86,9 @@ class SolverConfig:
     ir_iters: int = 1
     #: Keep the pre-factorization for the backward (else recompute it).
     save_factors_for_backward: bool = True
+    #: KKT backend: "auto" / True / "lanes" (kernels backend), "blocked"
+    #: (Cholesky-factor backend); see the module docstring for the rest.
+    use_pallas: bool | str = "auto"
     #: "subst" | "inverse" | "auto" (inverse below float64, subst at f64).
     solve_method: str = "auto"
     #: Lower clip for warm-start (s, z).
@@ -99,6 +116,11 @@ class SolverConfig:
     escalate_tol: float = 1e-4
 
     def __post_init__(self):
+        up = self.use_pallas
+        if not (isinstance(up, bool) or (isinstance(up, str)
+                                         and up in USE_PALLAS_VALUES)):
+            raise ValueError(f"use_pallas: {up!r} (expected a bool or one "
+                             f"of {USE_PALLAS_VALUES})")
         if self.broadcast_grad_reduction not in ("sum", "mean"):
             raise ValueError("broadcast_grad_reduction must be 'sum' or 'mean'")
         if self.refine_steps != "auto" and not isinstance(

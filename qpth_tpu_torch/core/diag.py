@@ -38,6 +38,7 @@ import torch
 
 from ..config import QPSolution, SolverConfig, SolveStats
 from ..ops.cuda import kernels
+from ..ops.kkt import no_library_path
 from ..ops.linalg import bmv, btmv, cho_solve_vec, cholesky
 from .pdipm import _is_f64, _step_to_boundary
 
@@ -116,6 +117,9 @@ def solve_diag(q, p, g, h, A, b, config: SolverConfig,
     # Per-lane latched windows with a margin, the global window at 0.
     per_lane_term = improve_margin > 0.0
 
+    # Every other use_pallas value runs the kernels here, as every value
+    # but False / "xla" takes the lanes kernels in the JAX package's tier.
+    no_library_path(config.use_pallas)
     use_kernels = use_kernels_m(dtype, neq)
     use_fused = (use_kernels and config.fused_diag_step and A is not None
                  and A.shape[0] == 1

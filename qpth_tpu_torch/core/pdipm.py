@@ -11,13 +11,15 @@ and without equality constraints, in the branches of the JAX solver:
 * ``track`` (fast, ``resid_every`` != 1): exact residual scores at
   checkpoints, (1 - alpha)-scaled norms in between, an exact rescore of the
   final iterate after the loop.
-* the fused iteration, one kernel per iteration where it fits a thread
-  block: ``ipm_step_eq`` with equality constraints, ``ipm_step_xfree``
-  (tracked, coefficient-tracked x) or ``ipm_step`` (the direct x
-  recurrence: ``resid_every=1`` or ``coeff_x=False``) without. Otherwise
-  the composed step: kernel A's factor with its first solve, then
-  ``inv_solve`` for the corrector and each Gondzio correction, with the
-  per-lane adaptive regularization of the fail-soft path.
+* the fused iteration, one kernel per iteration where the backend has it
+  (the kernels backend) and it fits a thread block: ``ipm_step_eq`` with
+  equality constraints, ``ipm_step_xfree`` (tracked, coefficient-tracked
+  x) or ``ipm_step`` (the direct x recurrence: ``resid_every=1`` or
+  ``coeff_x=False``) without. Otherwise the composed step: the backend's
+  factor with its first solve (kernel A, or kernel C under
+  ``use_pallas="blocked"``), then its ``solve2`` (``inv_solve`` or kernel
+  D) for the corrector and each Gondzio correction, with the per-lane
+  adaptive regularization of the fail-soft path.
 * ``xfree``: x carried as recurrence coefficients [w | v | e | c] with
   x = e x0 - c Q^-1 p - Q^-1 G^T w - Q^-1 A^T v, rebuilt at checkpoints.
 
@@ -134,7 +136,8 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
     per_lane_term = improve_margin > 0.0
     resid_every = resolve_resid_every(config, dtype)
 
-    backend = kkt_ops.resolve_backend(dtype, nineq, device)
+    backend = kkt_ops.resolve_backend(config.use_pallas, dtype, nineq,
+                                      device)
     fs = backend.prepare(factors)
 
     fast = fs.invQ_GT is not None
@@ -151,9 +154,10 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
         Gm = scaling_mod.scale_G(G, sc) if scaled else G
         Am = scaling_mod.scale_A(A, sc) if scaled else A
 
-    # The fused iteration, where one QP's working set fits a thread block.
+    # The fused iteration, where the backend has one and one QP's working
+    # set fits a thread block.
     use_fused = use_fused_eq = False
-    if fast:
+    if fast and backend.fused_step is not None:
         want_xfree = track and config.coeff_x is not False
         if neq == 0:
             use_fused = kkt_ops.fused_step_supported(
@@ -175,8 +179,10 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
 
     def fast_predictor(z, y, d):
         """Factor and predictor solve through the cached products; returns
-        (fac, ds, dz, dy). GiGT z = R z + S21 (W z), so the R z part folds
-        into the factor kernel and only the S21 / W products stay outside.
+        (fac, ds, dz, dy). GiGT z = R z + S21 (W z), so the R z part goes to
+        the backend's ``factor_solve_rz`` (folded into kernel A, or the
+        w = x + z substitution of the blocked backend) and only the S21 / W
+        products stay outside.
         dx is assembled once per iteration in fast_combined_dx."""
         q_ = q
         if neq > 0:
@@ -203,13 +209,16 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
     def kkt_factor_solve(d, rx, rs, rz, ry):
         """The factor of T and the first solve on it in one kernel; returns
         (fac, dx, ds, dz, dy)."""
-        rhs_T, u = kkt_ops.prepare_rhs_kkt(fs, d, Gm, Am, rx, rs, rz, ry)
+        rhs_T, u = kkt_ops.prepare_rhs_kkt(fs, d, Gm, Am, rx, rs, rz, ry,
+                                           backend.q_solve2)
         fac, dz = backend.factor_solve(fs.R, d, rhs_T)
-        return (fac,) + kkt_ops.backsub_kkt(fs, dz, u, d, Gm, Am, rx, rs)
+        return (fac,) + kkt_ops.backsub_kkt(fs, dz, u, d, Gm, Am, rx, rs,
+                                            backend.q_solve2)
 
     def kkt_solve(fac, d, rx, rs, rz, ry):
         return kkt_ops.solve_kkt(fs, fac, d, Gm, Am, rx, rs, rz, ry,
-                                 solve2=backend.solve2)
+                                 solve2=backend.solve2,
+                                 q_solve2=backend.q_solve2)
 
     zero = torch.zeros((), dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
@@ -342,8 +351,8 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
         return rx, rz, ry, pri, norm(rx_o * sw_rx), pri_o, norm(rx_o)
 
     def composed_step(x, s, z, y, reg, mu, rx, rz, ry):
-        """One predictor-corrector step from kernel A's factor and
-        ``inv_solve``; returns the new state, the applied per-lane step (0
+        """One predictor-corrector step from the backend's factor and
+        solves; returns the new state, the applied per-lane step (0
         on frozen lanes) and the regularization for the next iteration."""
         d = z / s
         # A lane whose last direction was NaN re-factors T + reg I, as the

@@ -15,10 +15,18 @@ the direct x update.
 equality constraints (the S11/S21/W algebra, the y and x updates).
 ``diag_step`` (``csrc/diag_step.cu``): one whole iteration of the
 diagonal-Q/G tier, M's factor and inverse included.
+Kernel C, ``chol`` (``csrc/chol.cu``), in four variants:
+  * ``chol(A)``                  -> Lt = chol(A)^T
+  * ``chol(R, dinv)``            -> Lt = chol(R + diag(dinv))^T
+  * ``chol(R, dinv, rhs)``       -> (Lt, T^-1 rhs)   (and without dinv)
+Kernel D, ``cho_solve`` (``csrc/cho_solve.cu``): x = (L L^T)^-1 v from Lt
+(or from L itself with ``lower=True``).
+Kernel E, ``trinv`` (``csrc/trinv.cu``): inv(L) from Lt.
 
 Layout is batch-major throughout: matrices (b, rows, cols) with b in
 {1, B} (a shared matrix is read with batch stride 0), vectors (B, n), Linv
-(B, m, m) with row i of inv(L) in row i (lower triangular).
+(B, m, m) with row i of inv(L) in row i (lower triangular), Lt (B, m, m)
+upper triangular with exact zeros below the diagonal.
 
 Dispatch is by device and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel, and a failed build or launch
@@ -54,9 +62,14 @@ THREADS = 256
 DIAG_N_VECTORS = 10
 DIAG_EQ_VECTORS = 5
 
+#: m-vectors the Cholesky kernel keeps beside its one m x m tile
+#: (``kCholVectors`` in csrc/common.cuh).
+CHOL_VECTORS = 4
+
 LAUNCHES = {"factor_inv": 0, "factor_inv_solve": 0,
             "factor_inv_solve_rz": 0, "ipm_step_xfree": 0, "inv_solve": 0,
-            "ipm_step": 0, "ipm_step_eq": 0, "diag_step": 0}
+            "ipm_step": 0, "ipm_step_eq": 0, "diag_step": 0, "chol": 0,
+            "chol_solve": 0, "cho_solve": 0, "trinv": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns: dict[str, object] = {}
@@ -88,6 +101,16 @@ def diag_step_fits(n: int, neq: int, dtype) -> bool:
     elt = torch.empty((), dtype=dtype).element_size()
     words = 2 * neq * neq + DIAG_EQ_VECTORS * neq + DIAG_N_VECTORS * n
     return 1 <= neq <= THREADS and words * elt <= SMEM_LIMIT
+
+
+def chol_fits(m: int, dtype) -> bool:
+    """Whether kernel C's working set fits a thread block: one m x m tile
+    plus CHOL_VECTORS m-vectors within 227 KB, and m <= THREADS (float32:
+    m <= 239; float64: m <= 168). Kernel D's tile (the factor's triangle
+    with an odd leading dimension, two n-vectors) is never larger, so the
+    same predicate bounds it."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    return m <= THREADS and (m * m + CHOL_VECTORS * m) * elt <= SMEM_LIMIT
 
 
 def _fn(stem: str, name: str, n_ptr: int, n_int: int):
@@ -579,3 +602,162 @@ def diag_step_plain(M, A, g, H, rx, rz, ry, x, s, z, y,
     alpha2 = torch.minimum(0.999 * step_min(dz, ds), one)
     alpha2, dx, ds, dz, dy = _freeze(alpha2, dx, ds, dz, dy)
     return x + alpha2 * dx, s + alpha2 * ds, z + alpha2 * dz, y + alpha2 * dy
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: chol, the Cholesky factor (with a diagonal shift, a first solve)
+# ---------------------------------------------------------------------------
+
+def chol(R, dinv=None, rhs=None):
+    """Lt = chol(R + diag(dinv))^T, upper triangular with exact zeros below
+    the diagonal; without ``dinv`` the factor of R itself; with ``rhs`` also
+    x = (R + diag(dinv))^-1 rhs, solved on the factor while it is still on
+    chip. R (1 or B, m, m) symmetric (its upper triangle is read), dinv and
+    rhs (B, m). A lane whose matrix is not SPD comes back with NaN in its
+    factor (and x) and leaves the other lanes alone.
+
+    Replaces the TPU kernels ``qpth_tpu/ops/pallas/cholesky.py``'s
+    ``cholesky_t_pallas`` and ``factor_kkt_t_pallas`` and
+    ``qpth_tpu/ops/pallas/lanes.py``'s ``factor_kkt_lanes`` and
+    ``factor_solve_kkt_lanes``. On the H100 it is bound by bytes: R's
+    triangle in and Lt's out (>= 0.049 ms at B = 4096, m = 100, f32). One
+    block per QP keeps T in one m x m shared-memory tile through the rank-1
+    recurrence; see csrc/chol.cu.
+
+    Returns Lt, or (Lt, x) when ``rhs`` is given."""
+    m = R.shape[-1]
+    vecs = tuple(v for v in (dinv, rhs) if v is not None)
+    B = vecs[0].shape[0] if vecs else R.shape[0]
+    _check("chol", R, vecs, B, m, tiles=False)
+    if R.device.type == "cpu":
+        return chol_plain(R, dinv, rhs)
+    if not chol_fits(m, R.dtype):
+        raise ValueError(f"chol: m = {m} exceeds the one-block shared "
+                         f"memory fit for {R.dtype}")
+    fn = _fn("chol", f"qpth_chol_{_SUFFIX[R.dtype]}", 5, 3)
+    Lt = torch.empty((B, m, m), dtype=R.dtype, device=R.device)
+    x = torch.empty_like(rhs) if rhs is not None else None
+    with torch.cuda.device(R.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(R.data_ptr(),
+                 dinv.data_ptr() if dinv is not None else None,
+                 rhs.data_ptr() if rhs is not None else None, Lt.data_ptr(),
+                 x.data_ptr() if x is not None else None, B, m,
+                 int(R.shape[0] > 1), stream)
+    variant = "chol" if rhs is None else "chol_solve"
+    _launch_error(variant, err)
+    LAUNCHES[variant] += 1
+    return Lt if rhs is None else (Lt, x)
+
+
+def chol_plain(R, dinv=None, rhs=None):
+    """Plain PyTorch version of :func:`chol`: the same rank-1 recurrence
+    pivot by pivot (``rsqrt`` pivots, the shift added to pivot j when it is
+    reached, rows scaled by the pivot's rsqrt), then
+    :func:`cho_solve_plain` for ``rhs``, vectorized over the batch."""
+    m = R.shape[-1]
+    vecs = tuple(v for v in (dinv, rhs) if v is not None)
+    B = vecs[0].shape[0] if vecs else R.shape[0]
+    T = R.expand(B, m, m).clone()
+    Lt = torch.zeros_like(T)
+    for j in range(m):
+        piv = T[:, j, j] + dinv[:, j] if dinv is not None else T[:, j, j]
+        isq = torch.rsqrt(piv)
+        lrow = T[:, j, j + 1:] * isq.unsqueeze(-1)
+        Lt[:, j, j] = piv * isq
+        Lt[:, j, j + 1:] = lrow
+        T[:, j + 1:, j + 1:] -= lrow.unsqueeze(-1) * lrow.unsqueeze(-2)
+    if rhs is None:
+        return Lt
+    return Lt, cho_solve_plain(Lt, rhs)
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: cho_solve, two triangular substitutions
+# ---------------------------------------------------------------------------
+
+def cho_solve(Lt, v, lower: bool = False):
+    """x solving (L L^T) x = v. ``Lt`` = L^T (1 or B, n, n), upper, as
+    :func:`chol` returns it; with ``lower=True`` the argument is L itself
+    (lower, the layout of the cached factors of Q and S11). v (B, n). A
+    factor of batch 1 serves every lane.
+
+    Replaces the TPU kernels ``qpth_tpu/ops/pallas/cholesky.py``'s
+    ``cho_solve_vec_t_pallas`` and ``qpth_tpu/ops/pallas/lanes.py``'s
+    ``cho_solve_lanes``. On the H100 it is bound by bytes: the factor's
+    triangle read once (>= 0.026 ms at B = 4096, n = 100, f32). One block
+    per QP stages the triangle in shared memory, one warp runs the two
+    substitutions; see csrc/cho_solve.cu."""
+    B, n = v.shape
+    _check("cho_solve", Lt, (v,), B, n, tiles=False)
+    if Lt.device.type == "cpu":
+        return cho_solve_plain(Lt, v, lower)
+    if not chol_fits(n, Lt.dtype):
+        raise ValueError(f"cho_solve: n = {n} exceeds the one-block shared "
+                         f"memory fit for {Lt.dtype}")
+    fn = _fn("cho_solve", f"qpth_cho_solve_{_SUFFIX[Lt.dtype]}", 3, 4)
+    x = torch.empty_like(v)
+    with torch.cuda.device(Lt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(Lt.data_ptr(), v.data_ptr(), x.data_ptr(), B, n,
+                 int(Lt.shape[0] > 1), int(lower), stream)
+    _launch_error("cho_solve", err)
+    LAUNCHES["cho_solve"] += 1
+    return x
+
+
+def cho_solve_plain(Lt, v, lower: bool = False):
+    """Plain PyTorch version of :func:`cho_solve`: the forward substitution
+    in SAXPY form over the rows of Lt, the back substitution as row dot
+    products, column by column, vectorized over the batch."""
+    U = Lt.transpose(-1, -2) if lower else Lt
+    n = v.shape[-1]
+    y = v.clone()
+    for j in range(n):
+        yj = y[:, j] / U[:, j, j]
+        y[:, j + 1:] -= U[:, j, j + 1:] * yj.unsqueeze(-1)
+        y[:, j] = yj
+    x = torch.zeros_like(y)
+    for i in range(n - 1, -1, -1):
+        acc = (U[:, i, i + 1:] * x[:, i + 1:]).sum(dim=-1)
+        x[:, i] = (y[:, i] - acc) / U[:, i, i]
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Kernel E: trinv, the triangular inverse
+# ---------------------------------------------------------------------------
+
+def trinv(Lt):
+    """inv(L) from Lt = L^T (B, n, n): lower triangular, row i of inv(L) in
+    row i, exact zeros above the diagonal.
+
+    Replaces the TPU kernel ``qpth_tpu/ops/pallas/cholesky.py::trinv_pallas``.
+    On the H100 it is bound by bytes: Lt's triangle in and invL's out
+    (>= 0.049 ms at B = 4096, n = 100, f32). One block per QP keeps Lt and
+    the inverse in shared memory, a thread per column of the inverse; see
+    csrc/trinv.cu."""
+    B, n = Lt.shape[0], Lt.shape[-1]
+    _check("trinv", Lt, (), B, n)
+    if Lt.device.type == "cpu":
+        return trinv_plain(Lt)
+    fn = _fn("trinv", f"qpth_trinv_{_SUFFIX[Lt.dtype]}", 2, 2)
+    out = torch.empty_like(Lt)
+    with torch.cuda.device(Lt.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(Lt.data_ptr(), out.data_ptr(), B, n, stream)
+    _launch_error("trinv", err)
+    LAUNCHES["trinv"] += 1
+    return out
+
+
+def trinv_plain(Lt):
+    """Plain PyTorch version of :func:`trinv`: the forward substitution
+    L X = I in SAXPY form over the rows of Lt, all columns at once."""
+    B, n = Lt.shape[0], Lt.shape[-1]
+    X = torch.eye(n, dtype=Lt.dtype, device=Lt.device).expand(B, n,
+                                                             n).clone()
+    for j in range(n):
+        X[:, j, :] /= Lt[:, j, j].unsqueeze(-1)
+        X[:, j + 1:, :] -= Lt[:, j, j + 1:].unsqueeze(-1) * X[:, j:j + 1, :]
+    return X

@@ -14,11 +14,28 @@ Cholesky factors of Q and S11 (substitution mode; the float64 default).
 
 The per-iteration work on T runs in the port's kernels through
 :class:`KKTBackend`; the tensors' device picks kernel or plain version.
-T's factor is always Linv = inv(chol(T)) from kernel A, also in
-substitution mode, where the JAX package's XLA backend keeps chol(T) and
-substitutes: every further solve on it is ``inv_solve``. Q and S11 are
-factored outside any kernel, as in the JAX package: the inverses by kernel
-A and one Gram product, the Cholesky factors by ``torch.linalg``.
+``SolverConfig.use_pallas`` picks one of two backends:
+
+* :func:`kernels_backend` (``"auto"``, ``True``, ``"lanes"``): T's factor
+  is Linv = inv(chol(T)) from kernel A, also in substitution mode, where
+  the JAX package's XLA backend keeps chol(T) and substitutes; every
+  further solve on it is ``inv_solve``; the fused steps run where they fit.
+  In substitution mode Q and S11 are factored by ``torch.linalg`` and
+  solved by ``torch.cholesky_solve``.
+* :func:`blocked_backend` (``"blocked"``, the JAX package's
+  ``pallas_blocked_backend``): T's factor is Lt = chol(T)^T from kernel C
+  and every solve on it is kernel D; no fused steps. In substitution mode
+  kernel C also factors Q and S11 and kernel D runs every Q and S11 solve.
+
+Layouts of the factor objects: a backend's per-iteration factor of T is
+Linv (lower, row i of inv(L) in row i) under the kernels backend and Lt
+(upper) under the blocked one. ``KKTFactors.L_Q`` and ``L_S11`` are the
+lower factors L under both backends and in every caller (the backward,
+``solve_qp_eq``): kernel D reads them as they are (``lower=True``), so no
+transposed copy is made.
+
+Inverse mode forms Q^-1 and S11^-1 by kernel A and one Gram product under
+both backends, as the JAX package does with its lanes kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +44,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import cholesky as chol_ops
 from .cuda import kernels
 from .linalg import bmm, bmv, btmv, cho_solve, cho_solve_vec, cholesky
 
@@ -107,22 +125,36 @@ def _bmm_t(XT, Y):
     return bmm(XT.transpose(-1, -2), Y)               # mixed batch
 
 
-def pre_factor_kkt(Q, G, A=None, *, inverse: bool = True) -> KKTFactors:
+def _chol_kernel(M):
+    """Lower Cholesky factor of batched SPD M by kernel C (the blocked
+    backend's factor of Q and S11 in substitution mode)."""
+    n = M.shape[-1]
+    if M.device.type == "cuda" and not kernels.chol_fits(n, M.dtype):
+        raise NotImplementedError(
+            f"n = {n} beyond the Cholesky kernel's shared-memory fit for "
+            f"{M.dtype} (hybrid path) — ROADMAP.md §1 item 13")
+    return chol_ops.cholesky(M).contiguous()
+
+
+def pre_factor_kkt(Q, G, A=None, *, inverse: bool = True,
+                   blocked: bool = False) -> KKTFactors:
     """One-time factorizations.
 
     Q: (bQ, nz, nz) SPD; G: (bG, nineq, nz); A: (bA, neq, nz) or None.
     ``inverse=True`` builds explicit Q^-1 / S11^-1 and the cached products
     of the fast per-iteration algebra; ``inverse=False`` keeps Cholesky
-    factors (the reference-parity mode)."""
+    factors (the reference-parity mode), from kernel C with ``blocked``
+    (the blocked backend), else from ``torch.linalg``."""
     GT = G.transpose(-1, -2)
     facQ = None
+    factor = _chol_kernel if blocked else cholesky
     if inverse:
         invQ, facQ = _q_rep(Q)
         L_Q = None
         invQ_GT = bmm(invQ, GT)                       # (b, nz, nineq)
     else:
         invQ = None
-        L_Q = cholesky(Q)
+        L_Q = factor(Q)
         invQ_GT = cho_solve(L_Q, GT)
     G_invQ_GT = _bmm_t(GT, invQ_GT)                   # (b, nineq, nineq)
     if A is None:
@@ -142,7 +174,7 @@ def pre_factor_kkt(Q, G, A=None, *, inverse: bool = True) -> KKTFactors:
         L_S11 = None
     else:
         invS11 = None
-        L_S11 = cholesky(S11)
+        L_S11 = factor(S11)
         W = cho_solve(L_S11, S21T)                    # (b, neq, nineq)
     R = G_invQ_GT - bmm(S21, W)
     return KKTFactors(L_Q=L_Q, R=R, L_S11=L_S11, S21=S21, W=W, invQ=invQ,
@@ -157,19 +189,20 @@ class KKTBackend(NamedTuple):
     """The per-iteration factor/solve operations on T (counterpart of the
     JAX package's ``KKTBackend``, with the lanes layout gone: ``prepare``
     and ``prepare_vec`` are the identity on batch-major tensors, and the
-    fused steps take the cached factors as they are)."""
+    fused steps take the cached factors as they are). ``fac`` is the
+    backend's factor of T: Linv (kernels backend) or Lt (blocked)."""
 
     #: One-time layout preparation of the cached factors.
     prepare: object
-    #: (R, d) -> Linv of R + diag(1/d).
+    #: (R, d) -> fac of T = R + diag(1/d).
     factor: object
-    #: (Linv, v) -> x solving (R + diag(1/d)) x = v on a factor made before.
+    #: (fac, v) -> x solving (R + diag(1/d)) x = v on a factor made before.
     solve2: object
-    #: (R, d, v) -> (Linv, x) solving (R + diag(1/d)) x = v.
+    #: (R, d, v) -> (fac, x) solving (R + diag(1/d)) x = v.
     factor_solve: object
-    #: (R, d, q, z) -> (Linv, x) solving (R + diag(1/d)) x = q - R z.
+    #: (R, d, q, z) -> (fac, x) solving (R + diag(1/d)) x = q - R z.
     factor_solve_rz: object
-    #: v -> loop-invariant vector in the backend's layout.
+    #: v -> loop-invariant vector in the backend's layout (fused steps).
     prepare_vec: object
     #: (R, iGT, x, s, z, q, ip, n_correctors) -> (x', s', z', alpha): one
     #: fused iteration with the direct x update (neq == 0).
@@ -181,10 +214,23 @@ class KKTBackend(NamedTuple):
     #: (R, s, z, q, n_correctors) -> (zeta, s', z', alpha): one fused
     #: x-free iteration (neq == 0).
     fused_step_xfree: object
+    #: (L, v) -> x solving (L L^T) x = v on the lower Cholesky factor of Q
+    #: or S11 (substitution mode); None: ``torch.cholesky_solve``. The
+    #: JAX package passes one ``solve2`` for T, Q and S11 alike; here T's
+    #: factor under the kernels backend is no Cholesky factor.
+    q_solve2: object = None
+
+
+def _prepare(f: KKTFactors) -> KKTFactors:
+    """The kernels read each matrix in place: make them contiguous once per
+    solve (a no-op for factors this module built)."""
+    return f._replace(**{k: v.contiguous() for k, v in f._asdict().items()
+                         if isinstance(v, torch.Tensor)})
 
 
 def kernels_backend() -> KKTBackend:
-    """The port's only backend: its CUDA kernels (plain versions on CPU)."""
+    """Kernel A's factor-inverse and the fused steps (plain versions on
+    CPU)."""
 
     def factor(R, d):
         return kernels.factor_inv(R, 1.0 / d)
@@ -215,14 +261,7 @@ def kernels_backend() -> KKTBackend:
         return kernels.ipm_step_xfree(R, s.contiguous(), z.contiguous(), q,
                                       n_correctors)
 
-    def prepare(f: KKTFactors) -> KKTFactors:
-        """The kernels read each matrix in place: make them contiguous
-        once per solve (a no-op for factors this module built)."""
-        return f._replace(**{
-            k: v.contiguous() for k, v in f._asdict().items()
-            if isinstance(v, torch.Tensor)})
-
-    return KKTBackend(prepare=prepare, factor=factor, solve2=solve2,
+    return KKTBackend(prepare=_prepare, factor=factor, solve2=solve2,
                       factor_solve=factor_solve,
                       factor_solve_rz=factor_solve_rz,
                       prepare_vec=lambda v: v.contiguous(),
@@ -230,15 +269,71 @@ def kernels_backend() -> KKTBackend:
                       fused_step_xfree=fused_step_xfree)
 
 
-def resolve_backend(dtype, m: int, device) -> KKTBackend:
+def blocked_backend() -> KKTBackend:
+    """The Cholesky-factor backend (the JAX package's
+    ``pallas_blocked_backend``): T's factor is Lt = chol(T)^T from kernel C,
+    and kernel D runs every solve on it and, in substitution mode, on the
+    lower factors of Q and S11. No fused steps: the solver composes each
+    iteration from one kernel C with its first solve and kernel D."""
+
+    def factor(R, d):
+        return chol_ops.factor_kkt_t(R, d)
+
+    def factor_solve(R, d, v):
+        return chol_ops.factor_solve_kkt(R, 1.0 / d, v)
+
+    def factor_solve_rz(R, d, q, z):
+        # The JAX package's substitution w = x + z: (R + D^-1) w = q + z/d,
+        # so no R z product; its float32 error is measured in PERF.md.
+        fac, w = factor_solve(R, d, q + z / d)
+        return fac, w - z
+
+    return KKTBackend(
+        prepare=_prepare, factor=factor, solve2=chol_ops.cho_solve_vec_t,
+        factor_solve=factor_solve, factor_solve_rz=factor_solve_rz,
+        prepare_vec=None, fused_step=None, fused_step_eq=None,
+        fused_step_xfree=None,
+        q_solve2=lambda L, v: kernels.cho_solve(L, v.contiguous(),
+                                                lower=True))
+
+
+def no_library_path(use_pallas) -> None:
+    """Raise for the JAX package's library-only values of ``use_pallas``."""
+    if use_pallas is False or use_pallas == "xla":
+        raise NotImplementedError(
+            f"use_pallas={use_pallas!r}: the port has no library-only path; "
+            "the tensors' device picks the kernel or its plain version. "
+            "use_pallas='blocked' runs the Cholesky-and-substitution algebra "
+            "of the JAX package's XLA backend through kernels C and D")
+
+
+def backend_kind(use_pallas) -> str:
+    """"kernels" or "blocked" for a ``SolverConfig.use_pallas`` value;
+    raises ``NotImplementedError`` for the values without a port."""
+    no_library_path(use_pallas)
+    if use_pallas == "hybrid":
+        raise NotImplementedError(
+            "use_pallas='hybrid' (the blocked hybrid path) — ROADMAP.md §1 "
+            "item 13")
+    if use_pallas == "hybrid_xla":
+        raise NotImplementedError(
+            "use_pallas='hybrid_xla' (the tensor-parallel path) — ROADMAP.md "
+            "§1 item 22")
+    return "blocked" if use_pallas == "blocked" else "kernels"
+
+
+def resolve_backend(use_pallas, dtype, m: int, device) -> KKTBackend:
     """The backend for a solve with nineq = m. On CUDA, an m beyond the
-    kernels' shared-memory fit needs the hybrid blocked path, which is not
-    ported."""
-    if torch.device(device).type == "cuda" and not kernels.fits(m, dtype):
+    backend's shared-memory fit (``fits`` for kernel A's two tiles,
+    ``chol_fits`` for kernel C's one) needs the hybrid blocked path, which
+    is not ported."""
+    blocked = backend_kind(use_pallas) == "blocked"
+    fit = kernels.chol_fits if blocked else kernels.fits
+    if torch.device(device).type == "cuda" and not fit(m, dtype):
         raise NotImplementedError(
             f"nineq = {m} beyond the kernels' shared-memory fit for {dtype} "
             "(hybrid path) — ROADMAP.md §1 item 13")
-    return kernels_backend()
+    return blocked_backend() if blocked else kernels_backend()
 
 
 def fused_step_supported(device, dtype, m: int, nz: int = 0,
@@ -256,16 +351,27 @@ def fused_step_supported(device, dtype, m: int, nz: int = 0,
 def resolve_prefactor_modes(config, dtype=None) -> dict:
     """kwargs for :func:`pre_factor_kkt`, resolved as the JAX package
     resolves them on a TPU: "auto" is inverse mode below float64 and
-    substitution mode at float64."""
+    substitution mode at float64. As there, the kernels backend's explicit
+    values (True, "lanes") refuse substitution mode below float64, where
+    the JAX package would run its lanes kernels."""
+    blocked = backend_kind(config.use_pallas) == "blocked"
+    below_f64 = torch.empty((), dtype=dtype).element_size() < 8
     method = config.solve_method
     if method == "auto":
-        inverse = torch.empty((), dtype=dtype).element_size() < 8
+        inverse = below_f64
     else:
         inverse = method == "inverse"
-    return dict(inverse=inverse)
+    if (below_f64 and not inverse and (config.use_pallas is True
+                                       or config.use_pallas == "lanes")):
+        raise ValueError(
+            "the lanes Pallas backend applies Q/S11 via explicit inverses; "
+            "solve_method='subst' requires use_pallas in (False, 'xla', "
+            "'blocked')")
+    return dict(inverse=inverse, blocked=blocked)
 
 
-def solve_kkt(factors: KKTFactors, fac, d, G, A, rx, rs, rz, ry, solve2):
+def solve_kkt(factors: KKTFactors, fac, d, G, A, rx, rs, rz, ry, solve2,
+              q_solve2=None):
     """Solve the reduced KKT system given the cached factors and the
     per-iteration factor ``fac`` of T:
 
@@ -276,10 +382,12 @@ def solve_kkt(factors: KKTFactors, fac, d, G, A, rx, rs, rz, ry, solve2):
     with the Schur solve in symmetric block form: u = S11^-1 (-r1);
     dz = T^-1 (-r2 - S21 u); dy = u - W dz. Any of rx/rs/rz/ry may be
     ``None``, meaning structurally zero: its products are skipped.
-    Returns (dx, ds, dz, dy) with dy None when neq == 0."""
-    rhs_T, u = prepare_rhs_kkt(factors, d, G, A, rx, rs, rz, ry)
+    ``solve2`` solves on ``fac``, ``q_solve2`` on the factors of Q and S11
+    (the backend's fields of those names). Returns (dx, ds, dz, dy) with dy
+    None when neq == 0."""
+    rhs_T, u = prepare_rhs_kkt(factors, d, G, A, rx, rs, rz, ry, q_solve2)
     dz = solve2(fac, rhs_T)
-    return backsub_kkt(factors, dz, u, d, G, A, rx, rs)
+    return backsub_kkt(factors, dz, u, d, G, A, rx, rs, q_solve2)
 
 
 def _acc(*terms):
@@ -292,21 +400,26 @@ def _acc(*terms):
     return out
 
 
-def _q_solvers(factors: KKTFactors):
-    """(v -> Q^-1 v, v -> S11^-1 v) under either representation."""
+def _q_solvers(factors: KKTFactors, solve2=None):
+    """(v -> Q^-1 v, v -> S11^-1 v) under either representation; in
+    substitution mode ``solve2`` (a backend's ``q_solve2``) applies the
+    lower factors, None meaning ``torch.cholesky_solve``."""
     if factors.invQ is not None:
         return (lambda v: apply_invQ(factors, v),
                 lambda v: bmv(factors.invS11, v))
-    return (lambda v: cho_solve_vec(factors.L_Q, v),
-            lambda v: cho_solve_vec(factors.L_S11, v))
+    solve = solve2 or cho_solve_vec
+    return (lambda v: solve(factors.L_Q, v),
+            lambda v: solve(factors.L_S11, v))
 
 
-def prepare_rhs_kkt(factors: KKTFactors, d, G, A, rx, rs, rz, ry):
+def prepare_rhs_kkt(factors: KKTFactors, d, G, A, rx, rs, rz, ry,
+                    solve2=None):
     """Stage 1 of :func:`solve_kkt`: everything up to the T-solve. Returns
     (rhs_T, u) with dz = T^-1 rhs_T and u the S11 intermediate (None unless
     neq > 0 with a nonzero (rx, ry) block). Split out so the factor and the
-    first solve run in one kernel (``backend.factor_solve``)."""
-    solveQ, solveS11 = _q_solvers(factors)
+    first solve run in one kernel (``backend.factor_solve``). ``solve2``
+    as in :func:`_q_solvers`."""
+    solveQ, solveS11 = _q_solvers(factors, solve2)
     invQ_rx = solveQ(rx) if rx is not None else None
     r2 = _acc(bmv(G, invQ_rx) if invQ_rx is not None else None,
               rs / d if rs is not None else None,
@@ -322,9 +435,10 @@ def prepare_rhs_kkt(factors: KKTFactors, d, G, A, rx, rs, rz, ry):
     return rhs_T, u
 
 
-def backsub_kkt(factors: KKTFactors, dz, u, d, G, A, rx, rs):
-    """Stage 2 of :func:`solve_kkt`: (dx, ds, dy) from dz."""
-    solveQ, _ = _q_solvers(factors)
+def backsub_kkt(factors: KKTFactors, dz, u, d, G, A, rx, rs, solve2=None):
+    """Stage 2 of :func:`solve_kkt`: (dx, ds, dy) from dz; ``solve2`` as in
+    :func:`_q_solvers`."""
+    solveQ, _ = _q_solvers(factors, solve2)
     if A is None:
         dy = None
         g1 = _acc(-rx if rx is not None else None, -btmv(G, dz))

@@ -165,7 +165,8 @@ def _backward(ctx, dl_dz):
             Gs = scaling_mod.scale_G(Gb, sc)
             As = scaling_mod.scale_A(Ab, sc)
 
-    backend = kkt_ops.resolve_backend(zhat.dtype, nineq, zhat.device)
+    backend = kkt_ops.resolve_backend(config.use_pallas, zhat.dtype, nineq,
+                                      zhat.device)
     fs = backend.prepare(factors)
     if fs.invQ_GT is not None:
         # Inverse mode: the RHS and back-substitution products fold into
@@ -183,10 +184,10 @@ def _backward(ctx, dl_dz):
             dx = dx - bmv(fs.invQ_AT, dnu)
     else:
         rhs_T, u = kkt_ops.prepare_rhs_kkt(fs, d, Gs, As, dl_dz, None, None,
-                                           None)
+                                           None, backend.q_solve2)
         _, dz_sol = backend.factor_solve(fs.R, d, rhs_T)
         dx, _, dlam, dnu = kkt_ops.backsub_kkt(fs, dz_sol, u, d, Gs, As,
-                                               dl_dz, None)
+                                               dl_dz, None, backend.q_solve2)
     if sc is not None:
         dx = dx * sc.E
         dlam = dlam * (sc.RG / sc.c)

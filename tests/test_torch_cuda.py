@@ -323,3 +323,110 @@ def test_diag_solve_on_card_matches_cpu(cuda, fused):
         assert (getattr(sc, name).cpu() - getattr(sh, name)).abs().max() < 1e-8
     assert (gc - gh).abs().max().item() <= 1e-7 * gh.abs().max().item()
     assert lc["diag_step" if fused else "inv_solve"] > 0
+
+
+# Kernels C, D, E (the Cholesky-factor backend, use_pallas="blocked").
+CHOL_MAX = {torch.float32: 239, torch.float64: 168}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("variant", ["plain_factor", "shift", "shift_rhs",
+                                     "rhs"])
+@pytest.mark.parametrize("m", [1, 37, 100, "max"])
+def test_chol_kernel_matches_plain(cuda, m, variant, shared, dtype):
+    m = CHOL_MAX[dtype] if m == "max" else m
+    assert kernels.chol_fits(m, dtype)
+    B = 16
+    R = _spd(1 if shared else B, m, dtype, cuda).contiguous()
+    dinv, rhs, _ = _vecs(B, m, dtype, cuda)
+    args = {"plain_factor": (R,), "shift": (R, dinv),
+            "shift_rhs": (R, dinv, rhs), "rhs": (R, None, rhs)}[variant]
+    if variant == "plain_factor" and shared:
+        args = (R.expand(B, m, m).contiguous(),)
+    kernels.reset_launches()
+    got = kernels.chol(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chol_solve" if len(args) == 3 else "chol"] == 1
+    want = kernels.chol_plain(*args)
+    got, want = ((got,), (want,)) if len(args) < 3 else (got, want)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= TOL[dtype] * 10
+    assert not torch.tril(got[0], -1).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chol_kernel_non_spd_lane_is_nan_alone(cuda, dtype):
+    B, m = 8, 37
+    R = _spd(B, m, dtype, cuda).contiguous()
+    R[5] = -R[5]
+    dinv, rhs, _ = _vecs(B, m, dtype, cuda)
+    Lt, x = kernels.chol(R, dinv * 0.1, rhs)
+    bad = torch.isnan(Lt).any(dim=(1, 2)).cpu()
+    assert bad.tolist() == [k == 5 for k in range(B)]
+    assert torch.isnan(x).any(dim=1).cpu().tolist() == bad.tolist()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("lower", [False, True])
+@pytest.mark.parametrize("n", [1, 37, 100, "max"])
+def test_cho_solve_kernel_matches_plain(cuda, n, lower, shared, dtype):
+    n = CHOL_MAX[dtype] if n == "max" else n
+    B = 16
+    Lt = kernels.chol(_spd(1 if shared else B, n, dtype, cuda).contiguous())
+    F = Lt.transpose(1, 2).contiguous() if lower else Lt
+    v = _vecs(B, n, dtype, cuda)[0] - 1.0
+    kernels.reset_launches()
+    got = kernels.cho_solve(F, v, lower=lower)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["cho_solve"] == 1
+    want = kernels.cho_solve_plain(F, v, lower=lower)
+    assert (got - want).abs().max().item() <= TOL[dtype] * 10
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 37, 100])
+def test_trinv_kernel_matches_plain(cuda, n, dtype):
+    B = 16
+    Lt = kernels.chol(_spd(B, n, dtype, cuda).contiguous())
+    kernels.reset_launches()
+    got = kernels.trinv(Lt)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["trinv"] == 1
+    assert (got - kernels.trinv_plain(Lt)).abs().max().item() <= TOL[dtype]
+    assert not torch.triu(got, 1).any()
+
+
+@pytest.mark.parametrize("case", ["f32_inverse", "f64_subst_eq",
+                                  "f64_subst_shared"])
+def test_blocked_solve_on_card_matches_cpu(cuda, case):
+    """use_pallas="blocked" end to end: the card (kernels C and D) against
+    the CPU (their plain versions), with its launches counted."""
+    r = np.random.RandomState(2)
+    B, nz, nineq, neq = 16, 20, 18, 7
+    L = r.rand(B, nz, nz)
+    Q = L @ L.transpose(0, 2, 1) + np.eye(nz)
+    G = r.randn(B, nineq, nz)
+    z0 = r.randn(B, nz)
+    h = np.einsum("bmn,bn->bm", G, z0) + r.rand(B, nineq)
+    p = r.randn(B, nz)
+    A = r.randn(B, neq, nz)
+    b = np.einsum("bmn,bn->bm", A, z0)
+    if case == "f64_subst_shared":
+        data = (Q[0], p, G[0], np.einsum("mn,bn->bm", G[0], z0) + 0.5)
+    else:
+        data = (Q, p, G, h, A, b) if case == "f64_subst_eq" else (Q, p, G, h)
+    dtype = torch.float32 if case == "f32_inverse" else torch.float64
+    cfg = qt.SolverConfig(use_pallas="blocked", eps=1e-9, refine_steps=0)
+    args = [torch.tensor(v, dtype=dtype) for v in data]
+    kernels.reset_launches()
+    on_card = qt.solve_qp_full(*args, config=cfg)
+    n = dict(kernels.LAUNCHES)
+    assert n["chol_solve"] > 0 and n["cho_solve"] > 0
+    assert n["ipm_step_xfree"] == n["ipm_step"] == n["inv_solve"] == 0
+    on_cpu = qt.solve_qp_full(*args, config=cfg, device="cpu")
+    tol = 1e-4 if dtype == torch.float32 else 1e-8
+    if dtype == torch.float64:
+        assert int(on_card.stats.iterations) == int(on_cpu.stats.iterations)
+    assert (on_card.z.cpu() - on_cpu.z).abs().max().item() < tol

@@ -184,7 +184,7 @@ def test_unported_branch_raises(case):
         # The shared-memory fit is checked on CUDA only; the predicate is
         # device-independent, so ask for the CUDA backend directly.
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            kkt_ops.resolve_backend(torch.float32, 200, "cuda")
+            kkt_ops.resolve_backend("auto", torch.float32, 200, "cuda")
         return
     Q, p, G, h = _qp()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -192,13 +192,13 @@ def test_unported_branch_raises(case):
 
 
 def test_config_matches_jax_fields():
-    """SolverConfig keeps every JAX field but the two TPU-only ones, with
-    the same defaults."""
+    """SolverConfig keeps every JAX field but the TPU-mesh one, with the
+    same defaults."""
     import qpth_tpu
 
     jf = {f.name: f.default for f in dataclasses.fields(qpth_tpu.SolverConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(qt.SolverConfig)}
-    assert set(jf) - set(tf) == {"use_pallas", "axis_name"}
+    assert set(jf) - set(tf) == {"axis_name"}
     assert set(tf) <= set(jf)
     for k, v in tf.items():
         if k not in ("kkt_solver", "solver"):
