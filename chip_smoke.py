@@ -38,6 +38,7 @@ prints no result.
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -185,6 +186,19 @@ def main():
     libs = build.build_all()
     print(f"# phase 1: built {[os.path.basename(str(p)) for p in libs]} "
           f"in {time.perf_counter() - t0:.2f} s")
+    # Registers and spills of every kernel instantiation, from ptxas's
+    # report that the build keeps beside each library.
+    for lib in libs:
+        log = lib.with_suffix(".log")
+        text = log.read_text() if log.exists() else ""
+        entries = re.findall(r"Compiling entry function '(\w+)'.*?(\d+) "
+                             r"bytes spill stores.*?Used (\d+) registers",
+                             text, re.S)
+        stem = lib.stem[len("lib"):].rsplit("_", 1)[0]
+        print(f"# phase 1: {stem}: registers (spill stores) per "
+              "instantiation: " + ", ".join(
+                  f"{'f32' if 'kernelIf' in e else 'f64'} {r} ({sp} B)"
+                  for e, sp, r in entries))
 
     # ---- phase 2: each kernel against its plain version ----
     def spd(bR, m, dtype, seed):
@@ -320,7 +334,19 @@ def main():
             kernels.inv_solve(got[0], rhs64 - 1.0),
             kernels.inv_solve_plain(got[0], rhs64 - 1.0), TOL_F64,
             "inv_solve")
-    del R64, dinv64, rhs64
+    # common.cuh states whether kernel A's Linv is bit-identical to the plain
+    # version's in float64; this is the measurement at the main width.
+    got, want = (fn(R64, dinv64) for fn in (kernels.factor_inv,
+                                              kernels.factor_inv_plain))
+    lanes_equal = int(torch.eq(got, want).all(dim=(1, 2)).sum())
+    f64_linv = dict(max_abs_diff=float((got - want).abs().max()),
+                    bit_identical=bool(torch.equal(got, want)),
+                    lanes_bit_identical=lanes_equal)
+    print(f"# phase 2: factor_inv f64 B={B} m={NINEQ} against its plain "
+          f"version: max abs diff {f64_linv['max_abs_diff']:.3e}, "
+          f"bit-identical {f64_linv['bit_identical']} ({lanes_equal} of "
+          f"{B} lanes)")
+    del R64, dinv64, rhs64, got, want
     for shared in ((), ("R", "g")):
         mats, v = step_operands(B, NINEQ, NZ, NEQ, shared, torch.float32, 20)
         for nc in (0, 2):
@@ -418,6 +444,85 @@ def main():
                       for o, a_ in zip(got, args[7:])),
                   "diag_step: the lane with a non-SPD M was not frozen")
     del args, got
+
+    # The one-tile recurrence (common.cuh::chol_inv_smem) at the largest m
+    # of kernels.fits (B = 64), with an nz and neq that fill the rest of the
+    # block: kernel A's three variants (lane 3 of the batched R not SPD: NaN
+    # in that lane alone) and the three fused-step modes (lane 5's T not
+    # SPD: frozen), R batched and shared; kernel 11 at a width of M beyond
+    # the old two-tile fit, with the largest n beside it.
+    tile_max = {torch.float32: (237, 7, 8), torch.float64: (166, 100, 16)}
+    for dtype, (m_, nz_, neq_) in tile_max.items():
+        tol = TOL_F32 if dtype == torch.float32 else TOL_F64
+        check(kernels.fits(m_, dtype, nz_, neq_)
+              and not kernels.fits(m_ + 1, dtype)
+              and not kernels.fits(m_, dtype, nz_ + 1, neq_),
+              f"fits' largest m, nz, neq for {dtype}")
+        for shared in (False, True):
+            R_ = spd(1 if shared else 64, m_, dtype, 130)
+            if not shared:
+                R_[3] = -R_[3]
+            dinv_, rhs_, z_ = vecs(64, m_, dtype, 131, k=3)
+            for name_, nv in variants:
+                args = (R_, dinv_, rhs_, z_)[:2 + nv]
+                got = kernels.factor_inv(*args)
+                torch.cuda.synchronize()
+                want = kernels.factor_inv_plain(*args)
+                got_t = got if isinstance(got, tuple) else (got,)
+                want_t = want if isinstance(want, tuple) else (want,)
+                bad = torch.isnan(got_t[0]).any(dim=(1, 2))
+                check((bool(bad[3]) and int(bad.sum()) == 1
+                       if not shared else not bool(bad.any()))
+                      and all(bool(torch.equal(torch.isnan(a), torch.isnan(
+                          b_))) for a, b_ in zip(got_t, want_t)),
+                      f"{name_}: the non-SPD lane is not NaN alone")
+                keep = ~bad
+                compare(f"{name_} {dtype} B=64 m={m_} shared={shared} "
+                        f"(largest fit; lane 3 NaN: {not shared})",
+                        tuple(a[keep] for a in got_t),
+                        tuple(b_[keep] for b_ in want_t), tol)
+                check(not bool(torch.triu(got_t[0], 1).any()),
+                      f"{name_}: nonzero entries above the diagonal")
+        for shared in ((), ("R", "g", "eq")):
+            mats, v = step_operands(64, m_, nz_, neq_, shared, dtype, 140)
+            x_, s_, z_, y_, q_, ip_, rb_ = v
+            Rb = (mats[0] - 2.0 * torch.eye(m_, device=dev,
+                                            dtype=dtype)).contiguous()
+            sb = z_ * (3.0 + s_)
+            sb[5] = 0.1 * z_[5]
+            mats = (Rb,) + mats[1:]
+            for name_, fn, plain, args in (
+                    ("ipm_step_xfree", kernels.ipm_step_xfree,
+                     kernels.ipm_step_xfree_plain, (Rb, sb, z_, q_, 2)),
+                    ("ipm_step", kernels.ipm_step, kernels.ipm_step_plain,
+                     no_eq(mats, (x_, sb, z_, y_, q_, ip_, rb_)) + (2,)),
+                    ("ipm_step_eq", kernels.ipm_step_eq,
+                     kernels.ipm_step_eq_plain,
+                     mats + (x_, sb, z_, y_, q_, ip_, rb_, 2))):
+                got = fn(*args)
+                torch.cuda.synchronize()
+                compare(f"{name_} {dtype} B=64 m={m_} nz={nz_} neq={neq_} "
+                        f"shared={shared} n_correctors=2 (largest fit; lane "
+                        "5 frozen)", got, plain(*args), tol)
+                check(float(got[-1][5]) == 0.0
+                      and int((got[-1] > 0).sum()) == 63,
+                      f"{name_}: the non-SPD lane alone must be frozen")
+    for dtype, n_, neq_ in ((torch.float32, 3170, 160),
+                            (torch.float64, 264, 160)):
+        check(kernels.diag_step_fits(n_, neq_, dtype)
+              and not kernels.diag_step_fits(n_ + 1, neq_, dtype),
+              f"diag_step_fits' largest n at neq = {neq_} for {dtype}")
+        args = diag_operands(64, n_, neq_, True, dtype, 141, nan_lane=5)
+        got = kernels.diag_step(*args, 2)
+        torch.cuda.synchronize()
+        compare(f"diag_step {dtype} B=64 n={n_} neq={neq_} n_correctors=2 "
+                "(largest n at this neq; lane 5 frozen)", got,
+                kernels.diag_step_plain(*args, 2),
+                TOL_F32 if dtype == torch.float32 else TOL_F64)
+        check(all(bool(torch.equal(o[5], a_[5]))
+                  for o, a_ in zip(got, args[7:])),
+              "diag_step: the lane with a non-SPD M was not frozen")
+    del R_, dinv_, rhs_, z_, mats, v, Rb, sb, args, got, want
 
     # Kernels C (chol), D (cho_solve) and E (trinv): float32 and float64 at
     # the main shape m = 100 (B = 4096), at an odd m = 37 and at the
@@ -1497,6 +1602,7 @@ def main():
             bound_bytes=nbytes, library_ms=lib_ms,
             library_call="torch.linalg.cholesky_ex + "
                          "torch.linalg.solve_triangular (two calls)"))
+    rows[0]["f64_against_plain"] = f64_linv
     # Kernel A's factor_solve in float64, as path 4 launches it once per
     # iteration.
     R64 = spd(B, m, torch.float64, 5)

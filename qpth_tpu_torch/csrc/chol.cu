@@ -8,7 +8,7 @@
 // batch-major function.
 //
 // One thread block per QP holds T in one m x m shared-memory tile (40 KB at
-// m = 100 in float32, where kernel A needs two) and runs common.cuh's
+// m = 100 in float32) and runs common.cuh's
 // right-looking rank-1 recurrence with rsqrt pivots, one barrier per pivot
 // step; the reference's 16-wide MXU blocking has no use on a thread block.
 // Only R's upper triangle is read. With rhs, one warp then runs the forward

@@ -1,8 +1,9 @@
 // Shared device code of the port's Hopper kernels: one thread block per QP,
 // the matrices of that QP held in dynamic shared memory.
 //
-// Layout: row-major m x m tiles with leading dimension m; every vector is an
-// m-array in shared memory or one register per thread (thread i <-> row i).
+// Layout: one row-major m x m tile per QP with leading dimension m; every
+// vector is an m-array in shared memory or one register per thread (thread
+// i <-> row i).
 // Compiled without --use_fast_math: a lane whose T is not SPD must produce
 // NaN (rsqrt of a negative pivot) and the NaN must propagate to the caller,
 // which freezes that lane.
@@ -15,17 +16,29 @@ namespace qpth {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-// m-vectors a kernel may keep in shared memory beside its two m x m tiles,
-// and the neq-vectors of the equality-constrained step. The fused steps with
-// the direct x update also keep one nz-vector (dx). The Python wrappers use
-// the same counts in their fit predicate.
+// m-vectors a kernel may keep in shared memory beside its m x m tile, and
+// the neq-vectors of the equality-constrained step. The fused steps with the
+// direct x update also keep one nz-vector (dx). The Python wrappers use the
+// same counts in their fit predicate.
 constexpr int kSmemVectors = 8;
 constexpr int kSmemEqVectors = 4;
 
 template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int m, int nz = 0, int neq = 0) {
-  return (2 * size_t(m) * m + size_t(kSmemVectors) * m + size_t(nz) +
+  return (size_t(m) * m + size_t(kSmemVectors) * m + size_t(nz) +
           size_t(kSmemEqVectors) * neq) * sizeof(T);
+}
+
+// Opt a kernel into `smem` bytes of dynamic shared memory and the largest
+// shared-memory carve-out, so that as many of its blocks as fit share an SM.
+template <typename Kernel>
+cudaError_t set_smem(Kernel kern, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              int(cudaSharedmemCarveoutMaxShared));
 }
 
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
@@ -100,37 +113,67 @@ __device__ void gmem_matvec(const T* __restrict__ M, const T* v, T* out, int row
   }
 }
 
-// Cholesky of T + diag(dinv) interleaved with the inverse of its factor
-// (the recurrence of the TPU kernel's _chol_inv_inplace):
-//   pivot step j:  isq = rsqrt(T[j][j] + dinv[j]),  L[k][j] = T[k][j] isq,
-//                  G[j] *= isq,  G[k] -= L[k][j] G[j],
-//                  T[k][e] -= L[k][j] L[e][j]          (k, e > j).
-// On entry Tm holds T (only its lower triangle and diagonal are read); on
-// exit Gm holds inv(L), lower triangular, row i of inv(L) in row i. For each
-// row k > j the step touches exactly m entries (G columns <= j, T columns
-// > j), so a warp sweeps one row with its lanes on consecutive addresses.
+// Cholesky of T + diag(dinv) interleaved with the inverse G = inv(L) of its
+// factor, in one m x m tile (the recurrence of the TPU kernel's
+// _chol_inv_inplace):
+//   pivot step j:  isq = rsqrt(T[j][j] + dinv[j]),  L[k][j] = T[j][k] isq,
+//                  G[k][e] -= L[k][j] (G[j][e] isq)     (k > j, e <= j),
+//                  T[k][e] -= L[k][j] (T[j][e] isq)     (j < k <= e).
+// The tile holds T's trailing block in its upper triangle and diagonal and
+// G's rows, unscaled, in its strictly lower triangle; G's diagonal is an
+// implicit 1 until the last pass (T's diagonal holds those words), and the
+// pivots' rsqrt go to isqv. Step j reads row j and writes rows k > j only,
+// G's columns [0, j] and T's [k, m) of row k in one pass of a warp: one
+// barrier per pivot step, and m^3 / 3 multiply-adds per QP in all.
+//
+// On entry Tm holds T whole, published behind a barrier. Only its lower
+// triangle is read: a first pass mirrors it onto the upper triangle and
+// clears the strictly lower part (R = G Q^-1 G^T from a product need not be
+// bitwise symmetric; the plain version reads the lower triangle too). On
+// exit Tm holds inv(L), lower triangular with exact zeros above the
+// diagonal. A negative pivot gives NaN (rsqrt), which spreads over the rest
+// of that QP's factor only.
+//
+// The products are those of ops/cuda/kernels.py::factor_inv_plain: L[k][j]
+// = T[k][j] isq, G's row j scaled by isq where it is used, the last scale
+// by isq_k. The result is not bit-identical to the plain version in
+// float64: nvcc contracts each update into one fused multiply-add (one
+// rounding where the plain version rounds the product and the difference);
+// chip_smoke.py phase 2 prints the float64 difference at m = 100.
 template <typename T>
-__device__ void chol_inv_smem(T* Tm, T* Gm, const T* dinv, T* lcol, int m) {
+__device__ void chol_inv_smem(T* Tm, const T* dinv, T* isqv, int m) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < m * m; i += blockDim.x)
-    Gm[i] = (i / m == i % m) ? T(1) : T(0);
+  const int nwarps = blockDim.x >> 5;
+  for (int i = threadIdx.x; i < m * m; i += blockDim.x) {
+    const int r = i / m, c = i - r * m;
+    if (c < r) {  // each (r, c), c < r, moves to (c, r): no two threads meet
+      Tm[c * m + r] = Tm[i];
+      Tm[i] = T(0);
+    }
+  }
   __syncthreads();
   for (int j = 0; j < m; ++j) {
-    const T isq = rsqrt_t(Tm[j * m + j] + dinv[j]);
-    for (int k = j + 1 + threadIdx.x; k < m; k += blockDim.x) lcol[k] = Tm[k * m + j] * isq;
-    for (int c = threadIdx.x; c <= j; c += blockDim.x) Gm[j * m + c] *= isq;
-    __syncthreads();
-    for (int k = j + 1 + warp; k < m; k += kWarps) {
-      const T lk = lcol[k];
-      T* grow = Gm + k * m;
-      T* trow = Tm + k * m;
-      for (int e = lane; e < m; e += 32) {
-        if (e <= j) grow[e] -= lk * Gm[j * m + e];
-        else trow[e] -= lk * lcol[e];
+    const T* rowj = Tm + j * m;
+    const T isq = rsqrt_t(rowj[j] + dinv[j]);
+    if (threadIdx.x == 0) isqv[j] = isq;
+    for (int k = j + 1 + warp; k < m; k += nwarps) {
+      const T lk = rowj[k] * isq;
+      T* rowk = Tm + k * m;
+      const int gap = k - j - 1;  // columns (j, k) of row k: not this step's
+      for (int t = lane; t < m - gap; t += 32) {
+        const int e = t <= j ? t : t + gap;
+        const T src = e == j ? T(1) : rowj[e];
+        rowk[e] -= lk * (src * isq);
       }
     }
     __syncthreads();
   }
+  for (int i = threadIdx.x; i < m * m; i += blockDim.x) {
+    const int r = i / m, c = i - r * m;
+    if (c < r) Tm[i] *= isqv[r];
+    else Tm[i] = c == r ? isqv[r] : T(0);
+  }
+  __syncthreads();
 }
 
 // m-vectors the Cholesky kernel (csrc/chol.cu) keeps beside its one m x m

@@ -3,8 +3,8 @@
 //
 // Replaces the TPU kernel qpth_tpu/ops/pallas/diagstep.py::diag_step_lanes
 // (_kernel) and follows it line by line:
-//   factor and invert M in place with no diagonal shift (chol_inv_smem of
-//   common.cuh with dinv = 0);
+//   factor and invert M in place in one neq x neq tile with no diagonal
+//   shift (chol_inv_smem of common.cuh with dinv = 0);
 //   Newton solve of rt:  dy = M^-1 (A (rt/H) [+ ry]),  dx = (rt - A^T dy)/H;
 //   predictor rt = -rx + g z - g d rz (d = z/s), ds = -rz - g dx,
 //   dz = -z - d ds; sigma = (t1/t2)^3, mu = |sum s z| / n;
@@ -13,8 +13,8 @@
 //   it lengthens the step; alpha = min(0.999 step, 1); a NaN in dx, ds, dz
 //   or dy freezes the QP (alpha = 0, every direction masked).
 //
-// One thread block per QP. M and its inverse factor sit in shared memory
-// (2 neq^2 words), with kDiagEqVectors neq-vectors and kDiagNVectors
+// One thread block per QP. M, then its inverse factor, sits in one neq x neq
+// shared-memory tile, with kDiagEqVectors neq-vectors and kDiagNVectors
 // n-vectors; the n-vectors are walked with strided loops, so n is not tied
 // to the thread count. A is read from device memory where it is used: one
 // warp per row for A v, thread k down column k for A^T v (neighbouring
@@ -26,8 +26,8 @@
 // n-vectors and two neq-vectors and writes four vectors: ~25 MB, ~7.4 us at
 // 3.35 TB/s. Its flops (neq^3 / 3 for the factor, ~neq^3 / 3 for the inverse,
 // 2 + 2 (1 + n_correctors) products with A and the triangular applies) take
-// ~3 us at 67 TFLOP/s. The neq dependent pivot steps behind two barriers each
-// set the time in this first version, as in kernel A.
+// ~3 us at 67 TFLOP/s. The neq dependent pivot steps (one barrier each)
+// set the time, as in kernel A.
 //
 // Block size: the common.cuh helpers (block_reduce, smem_matvec,
 // chol_inv_smem) are written for kThreads = 256, which also covers the
@@ -52,7 +52,7 @@ struct DiagArgs {
 
 template <typename T>
 constexpr size_t diag_smem_bytes(int n, int neq) {
-  return (2 * size_t(neq) * neq + size_t(kDiagEqVectors) * neq +
+  return (size_t(neq) * neq + size_t(kDiagEqVectors) * neq +
           size_t(kDiagNVectors) * n) * sizeof(T);
 }
 
@@ -61,10 +61,9 @@ __global__ void __launch_bounds__(kThreads) diag_step_kernel(DiagArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T red[kWarps];
   const int n = a.n, q = a.neq;
-  T* Tm = reinterpret_cast<T*>(smem_raw);  // M, then scratch of the factor
-  T* Gm = Tm + q * q;                      // inv(L), lower triangular
-  T* lcol = Gm + q * q;                    // neq-vectors
-  T* rhs = lcol + q;
+  T* Tm = reinterpret_cast<T*>(smem_raw);  // M, then inv(L)
+  T* isqv = Tm + q * q;                    // neq-vectors
+  T* rhs = isqv + q;
   T* w = rhs + q;
   T* ndy = w + q;
   T* dy = ndy + q;
@@ -93,7 +92,8 @@ __global__ void __launch_bounds__(kThreads) diag_step_kernel(DiagArgs<T> a) {
     Hs[k] = a.H[vb + k];
     gs[k] = gb[k];
   }
-  chol_inv_smem(Tm, Gm, w, lcol, q);  // its first barrier publishes the loads
+  __syncthreads();
+  chol_inv_smem(Tm, w, isqv, q);
 
   // Newton solve of the rt in shared memory: nx = dx, ndy = dy.
   auto newton = [&](bool with_ry) {
@@ -105,7 +105,7 @@ __global__ void __launch_bounds__(kThreads) diag_step_kernel(DiagArgs<T> a) {
       for (int c = i; c < q; c += blockDim.x) rhs[c] += a.ry[yb + c];
       __syncthreads();
     }
-    const T dyc = apply_inv(Gm, rhs, w, q);
+    const T dyc = apply_inv(Tm, rhs, w, q);
     if (i < q) ndy[i] = dyc;
     __syncthreads();
     for (int k = i; k < n; k += blockDim.x) {
@@ -240,8 +240,7 @@ static int launch(const void* const* ins, void* const* outs, int B, int n,
   a.n_correctors = n_correctors;
   auto kern = diag_step_kernel<T>;
   const size_t smem = diag_smem_bytes<T>(n, neq);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return int(err);
   kern<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());

@@ -2,20 +2,20 @@
 //
 // Replaces the TPU kernel qpth_tpu/ops/pallas/lanes.py::_factor_inv_call
 // (factor_inv_lanes, factor_inv_solve_lanes, factor_inv_solve_rz_lanes).
-// One thread block per QP; R and Linv of that QP sit in shared memory
-// (2 m^2 words: 80 KB at m = 100 in float32), so R is read from device
-// memory once and Linv written once.
+// One thread block per QP; R is factored and inverted in place in one m x m
+// shared-memory tile (40 KB at m = 100 in float32: 5 blocks per SM), so R
+// is read from device memory once and Linv written once.
 //
 // What bounds it on an H100: at B = 4096, m = 100 the bytes (the triangle of
 // the symmetric R in, the dense Linv out, 247 MB) take >= 0.074 ms at
 // 3.35 TB/s and the ~2/3 m^3 flops per QP >= 0.041 ms at 67 TFLOP/s, so
-// bytes bound it. This first version does not
-// get near that: each of the m pivot steps is a dependent step behind two
-// block barriers, with 2 blocks resident per SM (shared memory bounds
-// occupancy). The design keeps every intermediate on chip (the factor L is
-// never stored; only its current column lives in a shared vector) so the
-// device-memory traffic is already the minimum; the step latency is what a
-// later version attacks (register tiling, several QPs per block).
+// bytes bound it. The device-memory traffic is already the minimum (every
+// intermediate stays on chip); what sets the time is the chain of m
+// dependent pivot steps. common.cuh::chol_inv_smem runs each behind one
+// barrier and sweeps only the triangles it needs (m^3 / 3 multiply-adds per
+// QP), and the one tile lets 5 blocks share an SM, so the steps of one QP
+// overlap those of four others. Register tiling or several QPs per block
+// would shorten the chain further.
 //
 // Variants (compile-time flags of one template):
 //   RHS = false            Linv only                    (factor_inv_lanes)
@@ -34,11 +34,10 @@ factor_inv_kernel(const T* __restrict__ R, const T* __restrict__ dinv,
                   T* __restrict__ Linv, T* __restrict__ x, int m,
                   long long r_stride) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Tm = reinterpret_cast<T*>(smem_raw);
-  T* Gm = Tm + m * m;
-  T* dv = Gm + m * m;
-  T* lcol = dv + m;
-  T* r = lcol + m;
+  T* Tm = reinterpret_cast<T*>(smem_raw);  // R, then inv(L)
+  T* dv = Tm + m * m;
+  T* isqv = dv + m;
+  T* r = isqv + m;
   T* w = r + m;
   T* zs = w + m;
 
@@ -52,19 +51,20 @@ factor_inv_kernel(const T* __restrict__ R, const T* __restrict__ dinv,
   }
   __syncthreads();
 
-  if (RZ) {
+  if (RZ) {  // R z from the whole R, before the factorization mirrors it
     smem_matvec<T, false>(Tm, zs, w, m);
     __syncthreads();
     for (int i = threadIdx.x; i < m; i += blockDim.x) r[i] -= w[i];
-    // chol_inv_smem starts with a barrier after its identity fill.
   }
 
-  chol_inv_smem(Tm, Gm, dv, lcol, m);
+  chol_inv_smem(Tm, dv, isqv, m);  // its first barrier publishes r
 
+  // inv(L) with its exact zeros above the diagonal: callers multiply the
+  // whole matrix.
   T* Lb = Linv + b * m * m;
-  for (int i = threadIdx.x; i < m * m; i += blockDim.x) Lb[i] = Gm[i];
+  for (int i = threadIdx.x; i < m * m; i += blockDim.x) Lb[i] = Tm[i];
   if (RHS) {
-    const T xc = apply_inv(Gm, r, w, m);
+    const T xc = apply_inv(Tm, r, w, m);
     if (threadIdx.x < m) x[b * m + threadIdx.x] = xc;
   }
 }
@@ -75,8 +75,7 @@ static int launch(const void* R, const void* dinv, const void* rhs,
                   int r_batched, void* stream) {
   auto kern = factor_inv_kernel<T, RHS, RZ>;
   const size_t smem = smem_bytes<T>(m);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return int(err);
   kern<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(R), static_cast<const T*>(dinv),

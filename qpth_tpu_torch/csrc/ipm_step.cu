@@ -10,8 +10,8 @@
 // reads R (symmetric: its triangle, 83 MB) and Q^-1 G^T (164 MB) once each
 // plus a few vectors, >= 0.078 ms at 3.35 TB/s; its ~2/3 m^3 + 2 m^2 (2 + n_correctors) + 2 nz m flops per QP
 // take ~0.05 ms at 67 TFLOP/s. As in the x-free kernel the m dependent pivot
-// steps, each behind two barriers, set its time in this first version; the
-// Q^-1 G^T pass at the end adds one coalesced read.
+// steps (one barrier each) set its time; the Q^-1 G^T pass at the end adds
+// one coalesced read.
 #include "ipm_step_body.cuh"
 
 namespace qpth {

@@ -10,7 +10,8 @@
 // line ([EQ]: kStepEq only; [X]: every mode but kStepXFree):
 //   [EQ] r1 = rb + S21^T z + S11 y;  u = S11^-1 (-r1);
 //        rhs_a = q - S21 (W z + y + u) - R z          (else rhs_a = q - R z)
-//   factor and invert T = R + diag(s/z) (R z is taken from the raw R first);
+//   factor and invert T = R + diag(s/z) in one m x m tile (R z is taken from
+//   the raw R first);
 //   predictor dz_a = T^-1 rhs_a, ds_a = (-z - dz_a)/d, [EQ] dy_a = u - W dz_a;
 //   Mehrotra centering sigma = (t1/t2)^3, mu = |t2|/m; corrector, [EQ] with
 //   dy -= W dz_c; n_correctors Gondzio passes, each accepted per QP when it
@@ -19,15 +20,16 @@
 //   alpha2 = min(0.999 step, 1); a NaN in any of dz, ds, dx, dy freezes the
 //   QP: alpha = 0 and every direction masked.
 //
-// One thread block per QP. R and inv(L) sit in shared memory; thread i keeps
-// element i of every m-vector (s, z, d, dz, ds, ...) in registers, and the
-// per-QP min / sum reductions are block reductions. Each solve is two
+// One thread block per QP. R, then inv(L), sits in one m x m shared-memory
+// tile (common.cuh::chol_inv_smem factors and inverts it in place); thread i
+// keeps element i of every m-vector (s, z, d, dz, ds, ...) in registers, and
+// the per-QP min / sum reductions are block reductions. Each solve is two
 // shared-memory matvecs with inv(L). The nz- and neq-vectors (dx; y, u, dy
 // and one scratch) live in shared memory and are walked with strided loops,
-// so nz and neq are not tied to the thread count. Q^-1 G^T and the equality operands (S21, W, S11^-1, S11,
-// Q^-1 A^T) do not fit beside the two tiles; they are read from device
-// memory where they are used, one warp per row with its lanes on consecutive
-// addresses. Each carries its own batch flag: a shared operand is read with
+// so nz and neq are not tied to the thread count. Q^-1 G^T and the equality
+// operands (S21, W, S11^-1, S11, Q^-1 A^T) do not fit beside the tile; they
+// are read from device memory where they are used, one warp per row with its
+// lanes on consecutive addresses. Each carries its own batch flag: a shared operand is read with
 // batch stride 0 and stays in L2.
 #pragma once
 
@@ -59,15 +61,16 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T red[kWarps];
   const int m = a.m, nz = DX ? a.nz : 0, neq = EQ ? a.neq : 0;
-  T* Tm = reinterpret_cast<T*>(smem_raw);
-  T* Gm = Tm + m * m;
-  T* dv = Gm + m * m;
+  T* Tm = reinterpret_cast<T*>(smem_raw);  // R, then inv(L)
+  T* dv = Tm + m * m;
+  // S21 (W z + y + u) until the predictor's RHS is formed, then the pivots'
+  // rsqrt of the factorization (isqv).
   T* lcol = dv + m;
   T* r = lcol + m;
   T* w = r + m;
   T* zs = w + m;
-  T* dxs = Tm + 2 * m * m + kSmemVectors * m;  // nz
-  T* ys = dxs + nz;                            // neq each from here
+  T* dxs = Tm + m * m + kSmemVectors * m;  // nz
+  T* ys = dxs + nz;                        // neq each from here
   T* us = ys + neq;
   T* dys = us + neq;
   T* ts = dys + neq;
@@ -120,11 +123,13 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
     __syncthreads();
   }
 
-  // Predictor RHS, with R z from the raw R before the factorization.
+  // Predictor RHS, with R z from the whole raw R before the factorization
+  // mirrors its lower triangle. lcol is read here for the last time: the
+  // factorization's first barrier publishes r and frees lcol for isqv.
   smem_matvec<T, false>(Tm, zs, w, m);
   __syncthreads();
   if (act) r[i] = EQ ? (q - lcol[i]) - w[i] : q - w[i];
-  chol_inv_smem(Tm, Gm, dv, lcol, m);  // its first barrier publishes r
+  chol_inv_smem(Tm, dv, lcol, m);
 
   const MinOp mn;
   const SumOp sm;
@@ -141,7 +146,7 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
   };
 
   // Predictor.
-  const T dz_a = apply_inv(Gm, r, w, m);
+  const T dz_a = apply_inv(Tm, r, w, m);
   const T ds_a = (-z - dz_a) / d;
   if (EQ) {
     w_apply(dz_a);
@@ -160,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
   const T rs_c = (-(mu * sig) + ds_a * dz_a) / s;
   if (act) r[i] = -(rs_c / d);
   __syncthreads();
-  const T dz_c = apply_inv(Gm, r, w, m);
+  const T dz_c = apply_inv(Tm, r, w, m);
   const T ds_c = (-rs_c - dz_c) / d;
   T dz = dz_a + dz_c;
   T ds = ds_a + ds_c;
@@ -179,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
     const T rs_g = (v - nan_min(nan_max(v, T(0.1) * mu_t), T(10.0) * mu_t)) / s;
     if (act) r[i] = -(rs_g / d);
     __syncthreads();
-    const T ddz = apply_inv(Gm, r, w, m);
+    const T ddz = apply_inv(Tm, r, w, m);
     const T dds = (-rs_g - ddz) / d;
     const T dz_n = dz + ddz;
     const T ds_n = ds + dds;
@@ -248,8 +253,7 @@ static int launch_step(const StepArgs<T>& a, int B, void* stream) {
   auto kern = ipm_step_kernel<T, MODE>;
   const size_t smem = smem_bytes<T>(a.m, MODE != kStepXFree ? a.nz : 0,
                                     MODE == kStepEq ? a.neq : 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return int(err);
   kern<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return int(cudaGetLastError());

@@ -10,8 +10,8 @@
 // its triangle, 83 MB) plus a few (B, m) vectors, >= 0.028 ms at 3.35 TB/s; its ~2/3 m^3 + 2 m^2
 // (2 + n_correctors) flops per QP take ~0.04 ms at 67 TFLOP/s. As in kernel A
 // the device-memory traffic is already minimal (R read once, nothing but
-// vectors written); the m dependent pivot steps, each behind two barriers,
-// set its time in this first version.
+// vectors written); the m dependent pivot steps of common.cuh::chol_inv_smem
+// (one barrier each, one m x m tile) set its time.
 #include "ipm_step_body.cuh"
 
 namespace qpth {

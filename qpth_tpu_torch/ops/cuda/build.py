@@ -6,7 +6,8 @@ minutes). On first use every source is compiled at once, one ``nvcc`` per
 source, into ``build/qpth_tpu_torch/`` beside the package. A library is
 named after the hash of its sources and flags, so an edited source is
 rebuilt and an unchanged one is reused. A failed build raises with nvcc's
-output.
+output; a successful one keeps it beside the library (``.log``: ptxas's
+registers, stack and spills per kernel).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "qpth_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -74,6 +75,7 @@ def build_all() -> list[Path]:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            out.with_suffix(".log").write_text(log)
     if errors:
         raise RuntimeError("\n".join(errors))
     return [out for _, out in targets]

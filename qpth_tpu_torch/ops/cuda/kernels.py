@@ -48,17 +48,21 @@ from . import build
 
 #: Shared memory one thread block may use on Hopper (227 KB).
 SMEM_LIMIT = 232_448
-#: m-vectors a kernel keeps in shared memory beside its two m x m tiles
+#: m-vectors a kernel keeps in shared memory beside its m x m tile
 #: (``kSmemVectors`` in csrc/common.cuh).
 SMEM_VECTORS = 8
 #: neq-vectors of the equality-constrained step (``kSmemEqVectors``).
 SMEM_EQ_VECTORS = 4
 #: Threads per block (``kThreads`` in csrc/common.cuh): bounds m as well.
 THREADS = 256
+#: Words of the block reductions' static scratch (``red[kWarps]`` in
+#: csrc/ipm_step_body.cuh and csrc/diag_step.cu). Static shared memory
+#: counts against the same 227 KB as the dynamic allocation.
+RED_WORDS = THREADS // 32
 
 #: n- and neq-vectors the diagonal-tier step keeps in shared memory beside
-#: M and its inverse factor (``kDiagNVectors``, ``kDiagEqVectors`` in
-#: csrc/diag_step.cu).
+#: the neq x neq tile of M and its inverse factor (``kDiagNVectors``,
+#: ``kDiagEqVectors`` in csrc/diag_step.cu).
 DIAG_N_VECTORS = 10
 DIAG_EQ_VECTORS = 5
 
@@ -81,25 +85,31 @@ def reset_launches() -> None:
 
 
 def fits(m: int, dtype, nz: int = 0, neq: int = 0) -> bool:
-    """Whether one QP's working set fits a thread block: two m x m tiles
-    plus SMEM_VECTORS m-vectors within 227 KB, and m <= THREADS (float32:
-    m <= 168; float64: m <= 118). The fused steps with the direct x update
-    (``ipm_step``, ``ipm_step_eq``) also keep one nz-vector and, with
-    equality constraints, SMEM_EQ_VECTORS neq-vectors; pass their ``nz``
-    and ``neq``. ``inv_solve`` keeps no tile: m <= THREADS alone."""
+    """Whether one QP's working set fits a thread block: one m x m tile
+    (T's trailing block above the diagonal, inv(L)'s rows below it; see
+    csrc/common.cuh), SMEM_VECTORS m-vectors and the fused steps'
+    RED_WORDS of reduction scratch within 227 KB, and m <= THREADS
+    (float32: m <= 237, leaving 39 words; float64: m <= 166, leaving
+    164 words). The fused steps with the direct x update (``ipm_step``,
+    ``ipm_step_eq``) also keep one nz-vector and, with equality
+    constraints, SMEM_EQ_VECTORS neq-vectors; pass their ``nz`` and
+    ``neq``. ``inv_solve`` keeps no tile: m <= THREADS alone."""
     elt = torch.empty((), dtype=dtype).element_size()
-    words = 2 * m * m + SMEM_VECTORS * m + nz + SMEM_EQ_VECTORS * neq
+    words = (m * m + SMEM_VECTORS * m + RED_WORDS + nz
+             + SMEM_EQ_VECTORS * neq)
     return m <= THREADS and words * elt <= SMEM_LIMIT
 
 
 def diag_step_fits(n: int, neq: int, dtype) -> bool:
-    """Whether one QP of the diagonal-tier step fits a thread block: M and
-    its inverse factor (neq x neq each), DIAG_EQ_VECTORS neq-vectors and
-    DIAG_N_VECTORS n-vectors within 227 KB, 1 <= neq <= THREADS (neq = 0
-    never builds M; its step is elementwise). At neq = 40: n <= 5471 in
-    float32, n <= 2565 in float64."""
+    """Whether one QP of the diagonal-tier step fits a thread block: one
+    neq x neq tile for M and its inverse factor, DIAG_EQ_VECTORS
+    neq-vectors, DIAG_N_VECTORS n-vectors and RED_WORDS of reduction
+    scratch within 227 KB, 1 <= neq <= THREADS (neq = 0 never builds M;
+    its step is elementwise). At neq = 40: n <= 5630 in float32, n <= 2724
+    in float64."""
     elt = torch.empty((), dtype=dtype).element_size()
-    words = 2 * neq * neq + DIAG_EQ_VECTORS * neq + DIAG_N_VECTORS * n
+    words = (neq * neq + DIAG_EQ_VECTORS * neq + DIAG_N_VECTORS * n
+             + RED_WORDS)
     return 1 <= neq <= THREADS and words * elt <= SMEM_LIMIT
 
 
@@ -129,7 +139,7 @@ def _check(name, R, vecs, B, m, mats=(), more_vecs=(), nz=0, neq=0,
     """Device, dtype, shape and contiguity of a kernel's operands. ``R``
     (1 or B, m, m) and ``vecs`` (B, m); ``mats`` as (tensor, rows, cols)
     with batch 1 or B; ``more_vecs`` as (tensor, n) for (B, n) vectors;
-    ``tiles``: the kernel keeps the two m x m tiles in shared memory."""
+    ``tiles``: the kernel keeps an m x m tile in shared memory."""
     if R.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {R.device}")
     if R.dtype not in _SUFFIX:
@@ -173,9 +183,9 @@ def factor_inv(R, dinv, rhs=None, z=None):
     Replaces the TPU kernel ``qpth_tpu/ops/pallas/lanes.py::_factor_inv_call``
     (``factor_inv_lanes`` / ``factor_inv_solve_lanes`` /
     ``factor_inv_solve_rz_lanes``). On the H100 it is bound by bytes: R's
-    triangle in and Linv out once (>= 0.074 ms at B = 4096, m = 100, f32). One block per
-    QP keeps R, Linv and the current column of L in shared memory, so no
-    intermediate touches device memory; see csrc/factor_inv.cu.
+    triangle in and Linv out once (>= 0.074 ms at B = 4096, m = 100, f32).
+    One block per QP factors and inverts in one m x m shared-memory tile,
+    so no intermediate touches device memory; see csrc/factor_inv.cu.
 
     Returns Linv, or (Linv, x) when ``rhs`` is given."""
     if z is not None and rhs is None:
@@ -361,10 +371,10 @@ def ipm_step_xfree(R, s, z, q, n_correctors: int = 0):
     Replaces the TPU kernel
     ``qpth_tpu/ops/pallas/lanes.py::ipm_step_xfree_lanes``. On the H100 it
     is bound by bytes: R's triangle read once plus a few (B, m) vectors
-    (>= 0.028 ms at B = 4096, m = 100, f32). One block per QP: R and inv(L) in shared
-    memory, every m-vector in registers (thread i holds element i), the
-    per-QP min/sum reductions as block reductions; see
-    csrc/ipm_step_body.cuh, which the three fused steps share."""
+    (>= 0.028 ms at B = 4096, m = 100, f32). One block per QP: T and
+    inv(L) in one shared-memory tile, every m-vector in registers (thread
+    i holds element i), the per-QP min/sum reductions as block reductions;
+    see csrc/ipm_step_body.cuh, which the three fused steps share."""
     B, m = s.shape
     _check("ipm_step_xfree", R, (s, z, q), B, m)
     if R.device.type == "cpu":
@@ -449,7 +459,7 @@ def ipm_step_eq(R, iGT, S21, W, iS11, S11, iAT, x, s, z, y, q, ip, rb,
     ``qpth_tpu/ops/pallas/lanes.py::ipm_step_eq_lanes``. On the H100 it is
     bound by bytes: the seven matrices read once (>= 0.18 ms at B = 4096,
     m = nz = 100, neq = 50, f32). Kernel B's block design; the equality
-    operands do not fit in shared memory beside R and inv(L), so they are
+    operands do not fit in shared memory beside the m x m tile, so they are
     read from device memory where they are used, one warp per row; see
     csrc/ipm_step_eq.cu."""
     B, m = s.shape
@@ -507,9 +517,9 @@ def diag_step(M, A, g, H, rx, rz, ry, x, s, z, y, n_correctors: int = 0):
     ``qpth_tpu/ops/pallas/diagstep.py::diag_step_lanes``. At the sudoku
     layer's width (B = 4096, n = 64, neq = 40, float32) it is bound by
     bytes: M's triangle, A once and the vectors, ~25 MB (>= 0.0074 ms).
-    One block per QP keeps M and its inverse factor in shared memory with
-    the n- and neq-vectors; A is read from device memory (L2 when shared);
-    see csrc/diag_step.cu."""
+    One block per QP keeps M and its inverse factor in one shared-memory
+    tile with the n- and neq-vectors; A is read from device memory (L2
+    when shared); see csrc/diag_step.cu."""
     B, n = x.shape
     neq = y.shape[-1]
     if g.dim() != 2 or g.shape[-1] != n or g.shape[0] not in (1, B):

@@ -324,9 +324,10 @@ def backend_kind(use_pallas) -> str:
 
 def resolve_backend(use_pallas, dtype, m: int, device) -> KKTBackend:
     """The backend for a solve with nineq = m. On CUDA, an m beyond the
-    backend's shared-memory fit (``fits`` for kernel A's two tiles,
-    ``chol_fits`` for kernel C's one) needs the hybrid blocked path, which
-    is not ported."""
+    backend's shared-memory fit (``fits`` for kernel A and the fused steps,
+    ``chol_fits`` for kernel C; one m x m tile each, float32 m <= 237 and
+    239, float64 m <= 166 and 168) needs the hybrid blocked path, which is
+    not ported."""
     blocked = backend_kind(use_pallas) == "blocked"
     fit = kernels.chol_fits if blocked else kernels.fits
     if torch.device(device).type == "cuda" and not fit(m, dtype):

@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from . import scaling as scaling_mod
-from .config import QPSolution, SolverConfig, SolveStats
+from .config import QPSolution, QPSolvers, SolverConfig, SolveStats
 from .core import pdipm
 from .ops import kkt as kkt_ops
 from .ops.linalg import (bmv, btmv, cho_solve, cho_solve_vec, cholesky,
@@ -326,13 +326,15 @@ def _solve_qp_eq_core(Q, p, A, b):
 
 def QPFunction(eps: float = 1e-12, verbose: int = 0,
                notImprovedLim: int = 3, maxIter: int = 20,
+               solver: QPSolvers = QPSolvers.PDIPM_BATCHED,
                check_Q_spd: bool = True, device="cuda", **kwargs):
     """Upstream qpth's factory: returns ``fn(Q, p, G, h, A=None, b=None)
-    -> z``, differentiable. Extra keyword arguments go to
+    -> z``, differentiable. The positional parameters are upstream qpth's,
+    in its order; ``device`` follows them. Extra keyword arguments go to
     :class:`SolverConfig`."""
     config = SolverConfig(eps=eps, verbose=verbose,
                           not_improved_lim=notImprovedLim, max_iter=maxIter,
-                          check_Q_spd=check_Q_spd, **kwargs)
+                          solver=solver, check_Q_spd=check_Q_spd, **kwargs)
 
     def fn(Q, p, G, h, A=None, b=None):
         return solve_qp(Q, p, G, h, A, b, config=config, device=device)

@@ -150,6 +150,54 @@ def test_ipm_step_eq_kernel_matches_plain(cuda, shape, n_correctors, shared,
         assert (a - b).abs().max().item() <= TOL[dtype] * 10
 
 
+# The largest m of the one-tile fit (kernels.fits), and an nz / neq that
+# fill what is left of the block's shared memory at it.
+TILE_MAX = {torch.float32: (237, 7, 8), torch.float64: (166, 100, 16)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("variant", ["inv", "solve", "solve_rz"])
+def test_factor_inv_kernel_at_largest_fit(cuda, variant, shared, dtype):
+    m = TILE_MAX[dtype][0]
+    assert kernels.fits(m, dtype) and not kernels.fits(m + 1, dtype)
+    B = 16
+    R = _spd(1 if shared else B, m, dtype, cuda)
+    dinv, rhs, z = _vecs(B, m, dtype, cuda)
+    args = {"inv": (R, dinv), "solve": (R, dinv, rhs),
+            "solve_rz": (R, dinv, rhs, z)}[variant]
+    got = kernels.factor_inv(*args)
+    torch.cuda.synchronize()
+    want = kernels.factor_inv_plain(*args)
+    got, want = ((got,), (want,)) if variant == "inv" else (got, want)
+    for a, b in zip(got, want):
+        assert (a - b).abs().max().item() <= TOL[dtype] * 10
+    assert not torch.triu(got[0], 1).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shared", [(), ("R", "g", "eq")],
+                         ids=["batched", "shared"])
+def test_fused_steps_at_largest_fit(cuda, shared, dtype):
+    m, nz, neq = TILE_MAX[dtype]
+    assert kernels.fits(m, dtype, nz, neq)
+    assert not kernels.fits(m, dtype, nz + 1, neq)
+    mats, (x, s, z, y, q, ip, rb) = _step_operands(16, m, nz, neq, shared,
+                                                   dtype, cuda)
+    for fn, plain, args in (
+            (kernels.ipm_step_xfree, kernels.ipm_step_xfree_plain,
+             (mats[0], s, z, q, 2)),
+            (kernels.ipm_step, kernels.ipm_step_plain,
+             (mats[0], mats[1], x, s, z, q, ip, 2)),
+            (kernels.ipm_step_eq, kernels.ipm_step_eq_plain,
+             (*mats, x, s, z, y, q, ip, rb, 2))):
+        got = fn(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, plain(*args)):
+            assert bool(torch.isfinite(a).all())
+            assert (a - b).abs().max().item() <= TOL[dtype] * 10
+
+
 @pytest.mark.parametrize("eq", [False, True])
 def test_fused_step_freezes_non_spd_lane(cuda, eq):
     """A lane whose T is not SPD comes back unchanged with alpha = 0, from

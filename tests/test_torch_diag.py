@@ -171,8 +171,10 @@ def test_m_factor_branch_follows_the_fit():
     """M's factor runs in kernel A where M fits a block, in torch.linalg
     beyond (the reference's XLA branch); no equality rows, no M."""
     assert diag_core.use_kernels_m(torch.float32, 40)
-    assert diag_core.use_kernels_m(torch.float64, 118)
-    assert not diag_core.use_kernels_m(torch.float64, 119)
+    # kernels.fits: 166^2 + 8 * 166 + 8 = 28892 of 29056 float64 words,
+    # 167^2 + 8 * 167 + 8 = 29233 beyond.
+    assert diag_core.use_kernels_m(torch.float64, 166)
+    assert not diag_core.use_kernels_m(torch.float64, 167)
     assert not diag_core.use_kernels_m(torch.float32, 0)
     M = torch.eye(3, dtype=torch.float64).expand(2, 3, 3) * 4.0
     r = torch.ones(2, 3, dtype=torch.float64)

@@ -107,9 +107,13 @@ def test_diag_step_checks_its_operands():
     with pytest.raises(ValueError, match="matrix must be"):
         kernels.diag_step(args[0], args[1][:, :, :5], *args[2:])
     assert kernels.diag_step_fits(64, 40, torch.float32)
-    assert kernels.diag_step_fits(5471, 40, torch.float32)
-    assert not kernels.diag_step_fits(5472, 40, torch.float32)
-    assert kernels.diag_step_fits(2565, 40, torch.float64)
-    assert not kernels.diag_step_fits(2566, 40, torch.float64)
+    # One neq x neq tile, 5 neq-vectors, 10 n-vectors and 8 words of
+    # reduction scratch: at neq = 40, 40^2 + 5 * 40 + 8 = 1808 words leave
+    # (58112 - 1808) / 10 = 5630.4 n-vectors' worth in float32 and
+    # (29056 - 1808) / 10 = 2724.8 in float64.
+    assert kernels.diag_step_fits(5630, 40, torch.float32)
+    assert not kernels.diag_step_fits(5631, 40, torch.float32)
+    assert kernels.diag_step_fits(2724, 40, torch.float64)
+    assert not kernels.diag_step_fits(2725, 40, torch.float64)
     assert not kernels.diag_step_fits(64, 0, torch.float32)
     assert not kernels.diag_step_fits(300, 257, torch.float32)

@@ -267,8 +267,12 @@ def test_blocked_backend_has_no_fused_step_and_its_own_fit():
     assert be.q_solve2 is not None
     with pytest.raises(NotImplementedError, match="item 13"):
         kkt_ops.resolve_backend("blocked", torch.float32, 240, "cuda")
+    # nineq = 238: kernel C's one tile and 4 m-vectors fit (float32 m <= 239),
+    # the kernels backend's tile, 8 m-vectors and reduction scratch do not
+    # (m <= 237).
+    kkt_ops.resolve_backend("blocked", torch.float32, 238, "cuda")
     with pytest.raises(NotImplementedError, match="item 13"):
-        kkt_ops.resolve_backend("auto", torch.float32, 200, "cuda")
+        kkt_ops.resolve_backend("auto", torch.float32, 238, "cuda")
 
 
 def test_diagonal_tier_treats_blocked_as_auto():

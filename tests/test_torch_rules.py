@@ -10,6 +10,7 @@
 
 import ast
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -139,18 +140,26 @@ def test_cpu_solve_counts_no_launch():
 
 
 def test_kernel_fit_predicate():
-    """One QP's two m x m tiles and 8 m-vectors within 227 KB of shared
-    memory per block; the fused steps with the direct x update add one
-    nz-vector and, with equality constraints, 4 neq-vectors."""
-    assert kernels.fits(168, torch.float32)
-    assert not kernels.fits(169, torch.float32)
-    assert kernels.fits(118, torch.float64)
-    assert not kernels.fits(119, torch.float64)
-    # (2 * 168^2 + 8 * 168) * 4 = 231168 bytes leave 1280 = 320 words.
-    assert kernels.fits(168, torch.float32, nz=320)
-    assert not kernels.fits(168, torch.float32, nz=321)
-    assert kernels.fits(168, torch.float32, nz=120, neq=50)
-    assert not kernels.fits(168, torch.float32, nz=121, neq=50)
+    """One QP's m x m tile, 8 m-vectors and the 8 words of the block
+    reductions' static scratch within 227 KB of shared memory per block;
+    the fused steps with the direct x update add one nz-vector and, with
+    equality constraints, 4 neq-vectors."""
+    # float32: 58112 words; 237^2 + 8 * 237 + 8 = 58073,
+    # 238^2 + 8 * 238 + 8 = 58556.
+    assert kernels.fits(237, torch.float32)
+    assert not kernels.fits(238, torch.float32)
+    # float64: 29056 words; 166^2 + 8 * 166 + 8 = 28892,
+    # 167^2 + 8 * 167 + 8 = 29233.
+    assert kernels.fits(166, torch.float64)
+    assert not kernels.fits(167, torch.float64)
+    # float32 at m = 237 leaves 58112 - 58073 = 39 words: nz + 4 neq <= 39.
+    assert kernels.fits(237, torch.float32, nz=39)
+    assert not kernels.fits(237, torch.float32, nz=40)
+    assert kernels.fits(237, torch.float32, nz=7, neq=8)
+    assert not kernels.fits(237, torch.float32, nz=8, neq=8)
+    # float64 at m = 166 leaves 29056 - 28892 = 164 words.
+    assert kernels.fits(166, torch.float64, nz=100, neq=16)
+    assert not kernels.fits(166, torch.float64, nz=101, neq=16)
     assert kernels.fits(100, torch.float64, nz=100, neq=50)
     # m is bound by the thread count whatever the bytes.
     assert not kernels.fits(257, torch.float32) and kernels.THREADS == 256
@@ -160,8 +169,20 @@ def test_fused_step_supported_follows_device():
     """The solver asks the per-kernel fit on CUDA only; the plain versions
     on the CPU take any size."""
     assert kkt_ops.fused_step_supported("cpu", torch.float32, 500, 500, 9)
-    assert kkt_ops.fused_step_supported("cuda", torch.float32, 168)
-    assert not kkt_ops.fused_step_supported("cuda", torch.float32, 168, 321)
+    assert kkt_ops.fused_step_supported("cuda", torch.float32, 237)
+    assert kkt_ops.fused_step_supported("cuda", torch.float32, 237, 39)
+    assert not kkt_ops.fused_step_supported("cuda", torch.float32, 237, 40)
+    assert not kkt_ops.fused_step_supported("cuda", torch.float32, 238)
+
+
+@pytest.mark.parametrize("m", [169, 200, 237])
+def test_kernels_backend_takes_widths_of_one_tile(m):
+    """Widths between the old two-tile fit (168) and the one-tile fit (237)
+    route to the kernels backend and the fused steps on CUDA in float32,
+    and do not raise item 13's NotImplementedError."""
+    backend = kkt_ops.resolve_backend("auto", torch.float32, m, "cuda")
+    assert backend.fused_step is not None
+    assert kkt_ops.fused_step_supported("cuda", torch.float32, m)
 
 
 CASES = {
@@ -184,7 +205,7 @@ def test_unported_branch_raises(case):
         # The shared-memory fit is checked on CUDA only; the predicate is
         # device-independent, so ask for the CUDA backend directly.
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            kkt_ops.resolve_backend("auto", torch.float32, 200, "cuda")
+            kkt_ops.resolve_backend("auto", torch.float32, 238, "cuda")
         return
     Q, p, G, h = _qp()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -203,3 +224,45 @@ def test_config_matches_jax_fields():
     for k, v in tf.items():
         if k not in ("kkt_solver", "solver"):
             assert jf[k] == v, k
+
+
+def _params(fn):
+    """(name, kind) of each parameter, a trailing ``**kwargs`` apart."""
+    ps = [(p.name, p.kind) for p in inspect.signature(fn).parameters.values()]
+    var_kw = bool(ps) and ps[-1][1] == inspect.Parameter.VAR_KEYWORD
+    return (ps[:-1] if var_kw else ps), var_kw
+
+
+@pytest.mark.parametrize("entry", [
+    "QPFunction", "solve_qp", "solve_qp_full", "solve_qp_eq", "prefactor_qp",
+    "solve_qp_diag", "solve_qp_diag_full", "SpQPFunction.__init__"])
+def test_public_signatures_match_jax(entry):
+    """Each public entry point takes the JAX package's parameters by the
+    same names, in the same order and of the same kinds; the port adds
+    only a trailing ``device`` (before ``**kwargs``)."""
+    import qpth_tpu
+
+    def get(mod):
+        obj = mod
+        for part in entry.split("."):
+            obj = getattr(obj, part)
+        return obj
+
+    ref, ref_kw = _params(get(qpth_tpu))
+    port, port_kw = _params(get(qt))
+    assert port[-1][0] == "device"
+    assert port[:-1] == ref
+    assert port_kw == ref_kw
+
+
+@pytest.mark.parametrize("by", ["position", "keyword"])
+def test_qpfunction_cpu_oracle_raises(by):
+    """QPSolvers.CPU_ORACLE binds to ``solver`` by position as upstream
+    qpth's factory takes it, and raises naming item 12."""
+    Q, p, G, h = _qp(torch.float64)
+    fn = (qt.QPFunction(1e-12, 0, 3, 20, qt.QPSolvers.CPU_ORACLE,
+                        device="cpu") if by == "position" else
+          qt.QPFunction(1e-12, 0, 3, 20, solver=qt.QPSolvers.CPU_ORACLE,
+                        device="cpu"))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        fn(Q, p, G, h)
