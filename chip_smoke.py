@@ -23,7 +23,9 @@ through the kernels at full width (B = 4096, float32 unless said):
   ``SpQPFunction`` on its COO patterns, and ``nn.OptNetSudoku``;
 * path 6: ``use_pallas="blocked"``, the Cholesky-factor backend (kernels C,
   D and E): bench.py's workload in float32 inverse mode and the OptNet
-  pattern, path 1's data in float32 substitution mode, both in float64.
+  pattern, path 1's data in float32 substitution mode, both in float64,
+  and (6d) the OptNet pattern in substitution mode, float32 and float64,
+  whose Q solves run on one shared factor.
 
 It checks the results against float64 solves on the card and on the CPU
 and times kernels and solves with CUDA events. Any failed check exits
@@ -60,6 +62,7 @@ SUDOKU = dict(nx=64, neq=40)      # the OptNet sudoku layer at n = 2
 N_F64_CARD, N_F64_CPU = 256, 64   # lanes re-solved in float64
 TOL_F32 = 1e-3                    # kernel vs plain, float32, main shape
 TOL_F64 = 1e-10                   # kernel vs plain, float64, odd shape
+TOL_D64 = 1e-12                   # kernel D vs plain, float64, every shape
 # Backward clamp at which path 5 holds the float32 gradient to A, path 2's:
 # at the default 1e-8 a few lanes of the sudoku QP have more than nx - neq
 # active bounds and M = A diag(1/H) A^T (condition ~1e9 there) is beyond
@@ -570,21 +573,55 @@ def main():
                             else None)
                     check(not bool(torch.tril(got_t[0][keep], -1).any()),
                           f"{key}: nonzero entries below the diagonal")
-        # Kernel D on T's factor (batched Lt) and on a shared lower factor
-        # (L_Q of the OptNet pattern), at n = 100 and n = 37; kernel E.
+        # Kernel D in both regimes, a factor per lane (Lt of T, batched L_Q)
+        # and one shared factor (L_Q of the OptNet pattern), upper and
+        # lower, at n = 1, 37, 100 and the largest fit and B = 1, 64, 4096
+        # (128 tiles of 32 right-hand sides) and 4097. Entries across the
+        # diagonal hold noise the kernel must not read. Where B > 3, lane 3's
+        # factor (per lane) or right-hand side (shared) holds a NaN that must
+        # stay in lane 3.
+        tol_d = TOL_F32 if dtype == torch.float32 else TOL_D64
+        n_all = max(64, B + 1)
+        for n_ in (1, 37, NINEQ, m_max[dtype]):
+            Lt_all = kernels.chol(spd(n_all, n_, dtype, 112))
+            v_all = vecs(n_all, n_, dtype, 113, k=1)[0] - 1.0
+            gn = torch.Generator(device=dev).manual_seed(115)
+            for nb in (1, 64, B, B + 1):
+                for shared in (False, True):
+                    for lower in (False, True):
+                        F_ = Lt_all[:1 if shared else nb]
+                        F_ = (F_.transpose(1, 2) if lower else F_).clone(
+                            memory_format=torch.contiguous_format)
+                        if n_ > 1:
+                            noise = torch.randn(F_.shape, generator=gn,
+                                                device=dev, dtype=dtype)
+                            F_ += (torch.triu(noise, 1) if lower
+                                   else torch.tril(noise, -1))
+                        v_ = v_all[:nb].clone()
+                        if nb > 3 and shared:
+                            v_[3, 0] = float("nan")
+                        elif nb > 3:
+                            F_[3, n_ // 2, n_ // 2] = float("nan")
+                        got = kernels.cho_solve(F_, v_, lower=lower)
+                        torch.cuda.synchronize()
+                        want = kernels.cho_solve_plain(F_, v_, lower)
+                        bad = torch.isnan(got).any(dim=1)
+                        check(bool(torch.equal(torch.isnan(got),
+                                               torch.isnan(want)))
+                              and bad.tolist() == [k == 3 and nb > 3
+                                                   for k in range(nb)],
+                              f"cho_solve n={n_} B={nb} shared={shared} "
+                              f"lower={lower}: the NaN lane is not NaN "
+                              "alone")
+                        keep = ~bad
+                        compare(f"cho_solve {dtype} B={nb} n={n_} "
+                                f"shared={shared} lower={lower}",
+                                got[keep], want[keep], tol_d,
+                                ("cho_solve_shared" if shared else
+                                 "cho_solve") if (nb, n_, dtype)
+                                == (B, NINEQ, torch.float32) else None)
+            del Lt_all, v_all
         for nb, n_ in ((B, NINEQ), (64, 37)):
-            for shared in (False, True):
-                Lt_ = kernels.chol(spd(1 if shared else nb, n_, dtype, 112))
-                v_ = vecs(nb, n_, dtype, 113, k=1)[0] - 1.0
-                for lower in (False, True):
-                    F_ = Lt_.transpose(1, 2).contiguous() if lower else Lt_
-                    got = kernels.cho_solve(F_, v_, lower=lower)
-                    torch.cuda.synchronize()
-                    compare(f"cho_solve {dtype} B={nb} n={n_} "
-                            f"shared={shared} lower={lower}", got,
-                            kernels.cho_solve_plain(F_, v_, lower), tol,
-                            "cho_solve" if (nb, n_, shared, dtype)
-                            == (B, NINEQ, False, torch.float32) else None)
             Lt_ = kernels.chol(spd(nb, n_, dtype, 114))
             got = kernels.trinv(Lt_)
             torch.cuda.synchronize()
@@ -594,7 +631,7 @@ def main():
                     else None)
             check(not bool(torch.triu(got, 1).any()),
                   "trinv: nonzero entries above the diagonal")
-    del R_, dinv_, rhs_, Lt_, F_, v_, got, want
+    del R_, dinv_, rhs_, Lt_, F_, v_, got, want, noise
 
     # ---- phase 3: forward at full width through the kernels ----
     Q, p, G, h = make_problem(B, NZ, NINEQ, seed=0)
@@ -1440,15 +1477,21 @@ def main():
     fused = ("ipm_step", "ipm_step_eq", "ipm_step_xfree", "inv_solve")
 
     def blocked_counts(tag, launches, its_, n_factor_inv, n_chol, solves,
-                       init_solves=0):
+                       init_solves=0, t_solves=None):
         """Kernel C with rhs once per scored iteration (the init's, then
         one per stepped iteration), kernel D ``init_solves`` times in the
         init and ``solves`` times per stepped iteration, ``n_chol`` plain
         factors (Q, S11), ``n_factor_inv`` kernel A launches, no fused
-        step."""
+        step. With ``t_solves`` (T's solves per stepped iteration, on
+        per-lane factors) every other kernel D launch ran on a shared
+        factor; without it none did."""
         stepped = launches["chol_solve"] - 1
+        n_shared = (launches["cho_solve"] - t_solves * stepped
+                    if t_solves is not None else 0)
         check(stepped in (its_ - 1, its_) and stepped > 0
               and launches["cho_solve"] == init_solves + solves * stepped
+              and launches["cho_solve_shared"] == n_shared
+              and (t_solves is None or n_shared > 0)
               and launches["chol"] == n_chol
               and sum(launches[k] for k in kernel_a) == n_factor_inv
               and not any(launches[k] for k in fused),
@@ -1531,13 +1574,60 @@ def main():
                                 "QpGhAb"[:len(arrs_np)])
         def6[key] = dict(z=e_d, iterations=(its_b, its_d))
         del d64, sol_b, sol_d, g_
+
+    # (d) the OptNet pattern (phase 5's data: shared Q and G, batched p and
+    # h) in substitution mode: T's solves on per-lane factors, every Q
+    # solve on the one shared L_Q (kernel D's shared-factor kernel). Float32
+    # with solve_method="subst", forward and forward+backward, and float64
+    # at its default (substitution mode).
+    nc6 = cfg6s.n_correctors
+    sol6d, l6d, its6d = drive(f"phase 9c (path 6d): blocked subst OptNet "
+                              f"pattern f32 B={B}", sh32, cfg6s)
+    # Per stepped iteration: Q before and after the predictor's fused
+    # factor and solve, then T and Q for the corrector (and each Gondzio
+    # correction); the init's solve has Q twice.
+    blocked_counts("path 6d", l6d, its6d, 0, 1, 2 + 2 * (1 + nc6), 2,
+                   t_solves=1 + nc6)
+    med6d = f32_error("phase 9c (path 6d)", sol6d.z, shared, cfg64)
+    kernels.reset_launches()
+    _, g6d = grads_of(sh32, cfg6s, dev)
+    torch.cuda.synchronize()
+    l6d_fb = dict(kernels.LAUNCHES)
+    print(f"# phase 9c (path 6d): forward+backward launches "
+          f"{ {k: v for k, v in l6d_fb.items() if v} }")
+    check(not any(l6d_fb[k] for k in kernel_a)
+          and l6d_fb["cho_solve_shared"] > l6d["cho_solve_shared"]
+          and all(bool(torch.isfinite(g_).all()) for g_ in g6d),
+          "path 6d: kernel A ran, the backward solved on no shared factor, "
+          "or the gradients are not finite")
+    sh64d = tensors(shared, torch.float64, dev)
+    tag6d = f"phase 9c (path 6d) f64 B={B}"
+    sol6d64, l6d64, its6d64 = drive(tag6d + " blocked default", sh64d, cfg6)
+    blocked_counts("path 6d f64", l6d64, its6d64, 0, 1,
+                   2 + 2 * (1 + cfg6.n_correctors), 2,
+                   t_solves=1 + cfg6.n_correctors)
+    kernels.reset_launches()
+    _, g_ = grads_of(sh64d, cfg6, dev)
+    torch.cuda.synchronize()
+    l6d64_fb = dict(kernels.LAUNCHES)
+    check(all(bool(torch.isfinite(x_).all()) for x_ in g_),
+          "path 6d f64: gradients not finite")
+    # Card against CPU at eps = 1e-9, as (c): at the default eps = 1e-12 the
+    # exits sit at the score's rounding floor (ROADMAP §3).
+    cvc6d = card_vs_cpu(tag6d + " eps=1e-9", shared, cfg6_e9, "QpGh")
+    del g6d, g_, sol6d64, sh64d
+
     path_launches["path6_blocked"] = dict(
         a_forward=l6, a_forward_backward=l6_fb, a_optnet_forward=l6o,
-        b_forward=l6b, b_forward_backward=l6b_fb, c=l6c)
+        b_forward=l6b, b_forward_backward=l6b_fb, c=l6c,
+        d_forward=l6d, d_forward_backward=l6d_fb,
+        d_f64_forward=l6d64, d_f64_forward_backward=l6d64_fb)
     path_facts["path6_blocked"] = dict(
-        iterations=dict(a=its6, a_optnet=its6o, b=its6b),
-        f32_median_rel_err=dict(a=med6, a_optnet=med6o, b_not_gated=med6b),
-        card_vs_cpu=cvc6, against_f64_default=def6)
+        iterations=dict(a=its6, a_optnet=its6o, b=its6b, d=its6d,
+                        d_f64=its6d64),
+        f32_median_rel_err=dict(a=med6, a_optnet=med6o, b_not_gated=med6b,
+                                d=med6d),
+        card_vs_cpu=dict(cvc6, optnet=cvc6d), against_f64_default=def6)
 
     # ---- phase 10: timings (CUDA events, median of REPS after warm-up) ----
     def cuda_ms(fn, reps=REPS, warm=3):
@@ -1611,8 +1701,19 @@ def main():
                                                            rhs64))
     rows[1]["f64_bound_ms"] = bound(2 * (rtri + 3 * vec + mat),
                                     fac_flops + B * 2 * m * m, f64_peak)[0]
+    T64 = R64 + torch.diag_embed(dinv64)
+    eye64 = torch.eye(m, device=dev, dtype=torch.float64).expand(B, m, m)
+
+    def library_linv64():
+        L, _ = torch.linalg.cholesky_ex(T64)
+        return torch.linalg.solve_triangular(L, eye64, upper=False)
+
+    rows[1]["f64_library_ms"] = cuda_ms(library_linv64)
     print(f"# phase 10: factor_inv_solve f64: {rows[1]['f64_ms']:.3f} ms "
-          f"(bound {rows[1]['f64_bound_ms']:.4f} ms) at B={B} m={m}")
+          f"(bound {rows[1]['f64_bound_ms']:.4f} ms; library "
+          f"{rows[1]['f64_library_ms']:.3f} ms: torch.linalg.cholesky_ex + "
+          f"torch.linalg.solve_triangular, two calls) at B={B} m={m}")
+    del T64, eye64
     nc = cfg.n_correctors
     k_ms = cuda_ms(lambda: kernels.ipm_step_xfree(R, dinv, z, q - 1.0, nc))
     p_ms = cuda_ms(lambda: kernels.ipm_step_xfree_plain(R, dinv, z, q - 1.0,
@@ -1778,6 +1879,23 @@ def main():
     # float64. Bounds count R and the factors by their triangles; the
     # Cholesky factor and the triangular inverse take m^3 / 3 flops each,
     # the two substitutions 2 m^2.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, reps=10):
+        """Device time of one call of ``fn``: the profiler's sum of the
+        device-side events of ``reps`` calls, over ``reps`` (None where the
+        profiler sees no device time)."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        return total / 1e3 / reps if total else None
+
     def chol_facts(dtype):
         elt_ = torch.empty((), dtype=dtype).element_size()
         peak = f32_peak if dtype == torch.float32 else f64_peak
@@ -1816,6 +1934,11 @@ def main():
                 lambda: kernels.cho_solve_plain(Lt_, rhs_),
                 lambda: torch.cholesky_solve(rhs_.unsqueeze(-1), L_),
                 "torch.cholesky_solve", tri_b + 2 * vec_b, B * 2 * m * m),
+            "cho_solve_lower": (
+                lambda: kernels.cho_solve(L_, rhs_, lower=True),
+                lambda: kernels.cho_solve_plain(L_, rhs_, lower=True),
+                lambda: torch.cholesky_solve(rhs_.unsqueeze(-1), L_),
+                "torch.cholesky_solve", tri_b + 2 * vec_b, B * 2 * m * m),
             "cho_solve_shared_lower": (
                 lambda: kernels.cho_solve(LQ_, rhs_, lower=True),
                 lambda: kernels.cho_solve_plain(LQ_, rhs_, lower=True),
@@ -1835,11 +1958,23 @@ def main():
             out[key] = dict(ms=cuda_ms(k_fn), plain_ms=cuda_ms(p_fn),
                             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
                             library_ms=cuda_ms(l_fn), library_call=l_name)
+            extra = ""
+            if key.startswith("cho_solve"):
+                # Kernel D's launches are short beside the host time of one
+                # launch, which ``ms`` includes: the device time alone too.
+                out[key].update(device_ms=device_ms(k_fn),
+                                library_device_ms=device_ms(l_fn))
+                extra = ", ".join(
+                    f"{w} {v:.4f} ms" if v is not None else f"{w} not measured"
+                    for w, v in (("device", out[key]["device_ms"]),
+                                 ("library device",
+                                  out[key]["library_device_ms"])))
+                extra = ", " + extra
             print(f"# phase 10: {key} {dtype}: {out[key]['ms']:.3f} ms "
                   f"(plain {out[key]['plain_ms']:.3f} ms, bound {b_ms:.4f} "
                   f"ms by {b_by}, {nbytes / 1e6:.1f} MB, library "
-                  f"{out[key]['library_ms']:.3f} ms: {l_name}) at B={B} "
-                  f"m={m}")
+                  f"{out[key]['library_ms']:.3f} ms: {l_name}{extra}) at "
+                  f"B={B} m={m}")
         return out
 
     cf32, cf64 = chol_facts(torch.float32), chol_facts(torch.float64)
@@ -1874,8 +2009,22 @@ def main():
                    launches_note=note, max_abs_err=errs[key], **f_,
                    float64=cf64[key])
         if key == "cho_solve":
+            row["lower"] = dict(float32=cf32["cho_solve_lower"],
+                                float64=cf64["cho_solve_lower"])
             row["shared_lower"] = dict(float32=cf32["cho_solve_shared_lower"],
                                        float64=cf64["cho_solve_shared_lower"])
+            row["max_abs_err_shared"] = errs["cho_solve_shared"]
+            p6l = path_launches["path6_blocked"]
+            row["launches_by_path"] = {
+                k: {n_: p6l[k][n_] for n_ in ("cho_solve", "cho_solve_shared")}
+                for k in ("a_forward", "a_forward_backward", "b_forward",
+                          "b_forward_backward", "d_forward",
+                          "d_forward_backward", "d_f64_forward",
+                          "d_f64_forward_backward")}
+            row["launches_by_path"].update({
+                f"c_{k}_{w}": {n_: p6l["c"][k][w][n_]
+                               for n_ in ("cho_solve", "cho_solve_shared")}
+                for k in p6l["c"] for w in ("forward", "forward_backward")})
         rows.append(row)
     check(len(rows) == 15, f"the kernels line has {len(rows)} rows, not 15")
 
@@ -1969,7 +2118,20 @@ def main():
         b_forward_ms=report("path6 (b) blocked subst forward", host_ms(
             lambda: qt.solve_qp_full(*eq32, config=cfg6s)), its6b),
         b_forward_backward_ms=report("path6 (b) forward+backward", host_ms(
-            lambda: grads_of(eq32, cfg6s, dev))))
+            lambda: grads_of(eq32, cfg6s, dev))),
+        d_forward_ms=report("path6 (d) blocked subst OptNet forward",
+                            host_ms(lambda: qt.solve_qp_full(
+                                *sh32, config=cfg6s)), its6d),
+        d_forward_backward_ms=report("path6 (d) forward+backward", host_ms(
+            lambda: grads_of(sh32, cfg6s, dev))))
+    sh64d = tensors(shared, torch.float64, dev)
+    p6["d_f64_forward_ms"] = report(
+        "path6 (d) f64 blocked OptNet forward", host_ms(
+            lambda: qt.solve_qp_full(*sh64d, config=cfg6)), its6d64)
+    p6["d_f64_forward_backward_ms"] = report(
+        "path6 (d) f64 blocked OptNet forward+backward", host_ms(
+            lambda: grads_of(sh64d, cfg6, dev)))
+    del sh64d
     for key, arrs_np in (("bench", (Q, p, G, h)), ("eq", eq_np)):
         d64 = tensors(arrs_np, torch.float64, dev)
         p6[f"c_{key}_iterations"] = int(qt.solve_qp_full(
@@ -1987,9 +2149,6 @@ def main():
     # Device time of one forward+backward by kernel (torch.profiler), and
     # the share of the wall time the device was idle: the neq = 0 main
     # path, path 1, and path 5 composed and fused.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def trace_of(tag, fn):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:

@@ -20,7 +20,8 @@ Kernel C, ``chol`` (``csrc/chol.cu``), in four variants:
   * ``chol(R, dinv)``            -> Lt = chol(R + diag(dinv))^T
   * ``chol(R, dinv, rhs)``       -> (Lt, T^-1 rhs)   (and without dinv)
 Kernel D, ``cho_solve`` (``csrc/cho_solve.cu``): x = (L L^T)^-1 v from Lt
-(or from L itself with ``lower=True``).
+(or from L itself with ``lower=True``); a factor of batch 1 takes its
+shared-factor kernel (also counted as ``cho_solve_shared``).
 Kernel E, ``trinv`` (``csrc/trinv.cu``): inv(L) from Lt.
 
 Layout is batch-major throughout: matrices (b, rows, cols) with b in
@@ -73,7 +74,8 @@ CHOL_VECTORS = 4
 LAUNCHES = {"factor_inv": 0, "factor_inv_solve": 0,
             "factor_inv_solve_rz": 0, "ipm_step_xfree": 0, "inv_solve": 0,
             "ipm_step": 0, "ipm_step_eq": 0, "diag_step": 0, "chol": 0,
-            "chol_solve": 0, "cho_solve": 0, "trinv": 0}
+            "chol_solve": 0, "cho_solve": 0, "cho_solve_shared": 0,
+            "trinv": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns: dict[str, object] = {}
@@ -94,7 +96,7 @@ def fits(m: int, dtype, nz: int = 0, neq: int = 0) -> bool:
     ``ipm_step_eq``) also keep one nz-vector and, with equality
     constraints, SMEM_EQ_VECTORS neq-vectors; pass their ``nz`` and
     ``neq``. ``inv_solve`` keeps no tile: m <= THREADS alone."""
-    elt = torch.empty((), dtype=dtype).element_size()
+    elt = dtype.itemsize
     words = (m * m + SMEM_VECTORS * m + RED_WORDS + nz
              + SMEM_EQ_VECTORS * neq)
     return m <= THREADS and words * elt <= SMEM_LIMIT
@@ -107,7 +109,7 @@ def diag_step_fits(n: int, neq: int, dtype) -> bool:
     scratch within 227 KB, 1 <= neq <= THREADS (neq = 0 never builds M;
     its step is elementwise). At neq = 40: n <= 5630 in float32, n <= 2724
     in float64."""
-    elt = torch.empty((), dtype=dtype).element_size()
+    elt = dtype.itemsize
     words = (neq * neq + DIAG_EQ_VECTORS * neq + DIAG_N_VECTORS * n
              + RED_WORDS)
     return 1 <= neq <= THREADS and words * elt <= SMEM_LIMIT
@@ -116,10 +118,12 @@ def diag_step_fits(n: int, neq: int, dtype) -> bool:
 def chol_fits(m: int, dtype) -> bool:
     """Whether kernel C's working set fits a thread block: one m x m tile
     plus CHOL_VECTORS m-vectors within 227 KB, and m <= THREADS (float32:
-    m <= 239; float64: m <= 168). Kernel D's tile (the factor's triangle
-    with an odd leading dimension, two n-vectors) is never larger, so the
-    same predicate bounds it."""
-    elt = torch.empty((), dtype=dtype).element_size()
+    m <= 239; float64: m <= 168). Kernel D reads the factors kernel C
+    makes, so the same predicate bounds it; its own working set is smaller
+    (per lane: a 32 x 33 tile per warp; shared factor: the packed
+    triangle, a 32 x 32 diagonal block and n x 33 right-hand sides, 151 KB
+    at m = 239 in float32, 167 KB at m = 168 in float64)."""
+    elt = dtype.itemsize
     return m <= THREADS and (m * m + CHOL_VECTORS * m) * elt <= SMEM_LIMIT
 
 
@@ -690,14 +694,28 @@ def cho_solve(Lt, v, lower: bool = False):
     """x solving (L L^T) x = v. ``Lt`` = L^T (1 or B, n, n), upper, as
     :func:`chol` returns it; with ``lower=True`` the argument is L itself
     (lower, the layout of the cached factors of Q and S11). v (B, n). A
-    factor of batch 1 serves every lane.
+    factor of batch 1 serves every lane. Only the factor's triangle is read.
 
     Replaces the TPU kernels ``qpth_tpu/ops/pallas/cholesky.py``'s
     ``cho_solve_vec_t_pallas`` and ``qpth_tpu/ops/pallas/lanes.py``'s
-    ``cho_solve_lanes``. On the H100 it is bound by bytes: the factor's
-    triangle read once (>= 0.026 ms at B = 4096, n = 100, f32). One block
-    per QP stages the triangle in shared memory, one warp runs the two
-    substitutions; see csrc/cho_solve.cu."""
+    ``cho_solve_lanes``. The factor's batch picks one of two kernels in
+    csrc/cho_solve.cu:
+
+    * a factor for each lane: bound by bytes, the triangle read once
+      (>= 0.026 ms at B = 4096, n = 100, f32). One warp per QP, 32 QPs per
+      SM, the right-hand side in registers; the dependent steps run only
+      over 32 x 32 diagonal blocks, and the factor streams from device
+      memory block by block (cp.async) through a per-warp tile, transposed
+      where a pass needs it. Each pass reads the triangle;
+    * a shared factor (batch 1): B right-hand sides on one triangle. Each
+      block stages the triangle once in shared memory beside 32 right-hand
+      sides; warp 0 runs each panel's diagonal block, then eight warps
+      apply the panel to the other rows. Counted also under
+      ``LAUNCHES["cho_solve_shared"]``.
+
+    Both substitutions run in column order with each pivot applied as its
+    reciprocal: in float32 the result differs from :func:`cho_solve_plain`
+    by a few units in the last place times the factor's condition."""
     B, n = v.shape
     _check("cho_solve", Lt, (v,), B, n, tiles=False)
     if Lt.device.type == "cpu":
@@ -707,12 +725,15 @@ def cho_solve(Lt, v, lower: bool = False):
                          f"memory fit for {Lt.dtype}")
     fn = _fn("cho_solve", f"qpth_cho_solve_{_SUFFIX[Lt.dtype]}", 3, 4)
     x = torch.empty_like(v)
+    batched = Lt.shape[0] > 1
     with torch.cuda.device(Lt.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(Lt.data_ptr(), v.data_ptr(), x.data_ptr(), B, n,
-                 int(Lt.shape[0] > 1), int(lower), stream)
+                 int(batched), int(lower), stream)
     _launch_error("cho_solve", err)
     LAUNCHES["cho_solve"] += 1
+    if not batched:
+        LAUNCHES["cho_solve_shared"] += 1
     return x
 
 

@@ -419,18 +419,51 @@ def test_chol_kernel_non_spd_lane_is_nan_alone(cuda, dtype):
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("lower", [False, True])
 @pytest.mark.parametrize("n", [1, 37, 100, "max"])
-def test_cho_solve_kernel_matches_plain(cuda, n, lower, shared, dtype):
+@pytest.mark.parametrize("B", [1, 16, 64, 4097])
+def test_cho_solve_kernel_matches_plain(cuda, B, n, lower, shared, dtype):
+    """Both regimes (a factor per lane, one shared factor) and layouts, at
+    ragged n and B: the shared regime's right-hand-side tiles are 32 wide,
+    the per-lane regime runs 4 QPs per block. Entries across the diagonal
+    hold noise, which the kernel must not read."""
     n = CHOL_MAX[dtype] if n == "max" else n
-    B = 16
     Lt = kernels.chol(_spd(1 if shared else B, n, dtype, cuda).contiguous())
     F = Lt.transpose(1, 2).contiguous() if lower else Lt
-    v = _vecs(B, n, dtype, cuda)[0] - 1.0
+    if n > 1:
+        noise = torch.randn_like(F)
+        F = F + (torch.triu(noise, 1) if lower else torch.tril(noise, -1))
+    g = torch.Generator().manual_seed(3)
+    v = (torch.rand(B, n, generator=g, dtype=torch.float64) - 0.5).to(
+        dtype=dtype, device=cuda)
     kernels.reset_launches()
     got = kernels.cho_solve(F, v, lower=lower)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["cho_solve"] == 1
+    assert kernels.LAUNCHES["cho_solve_shared"] == int(shared or B == 1)
     want = kernels.cho_solve_plain(F, v, lower=lower)
-    assert (got - want).abs().max().item() <= TOL[dtype] * 10
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= TOL[dtype] * 10
+    else:  # 1e-12 relative to the solution, |x| <= |v| here
+        assert err <= 1e-12 * max(1.0, want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("lower", [False, True])
+def test_cho_solve_kernel_nan_lane_is_nan_alone(cuda, lower, dtype):
+    """A NaN in one lane's factor (per-lane regime) or right-hand side
+    (shared regime) stays in that lane."""
+    B, n = 70, 37
+    Lt = kernels.chol(_spd(B, n, dtype, cuda).contiguous())
+    F = Lt.transpose(1, 2).contiguous() if lower else Lt
+    F[5, 9, 9] = float("nan")
+    v = _vecs(B, n, dtype, cuda)[0] - 1.0
+    bad = torch.isnan(kernels.cho_solve(F, v, lower=lower)).any(dim=1)
+    assert bad.cpu().tolist() == [k == 5 for k in range(B)]
+    v[5, 0] = float("nan")
+    bad = torch.isnan(kernels.cho_solve(F[:1].contiguous(), v,
+                                        lower=lower)).any(dim=1)
+    assert bad.cpu().tolist() == [k == 5 for k in range(B)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
