@@ -180,6 +180,7 @@ def main():
 
     sys.path.insert(0, ROOT)
     import qpth_tpu_torch as qt
+    from qpth_tpu_torch.ops import cholesky as chol_ops
     from qpth_tpu_torch.ops.cuda import build, kernels
 
     dev = torch.device("cuda")
@@ -528,17 +529,19 @@ def main():
     del R_, dinv_, rhs_, z_, mats, v, Rb, sb, args, got, want
 
     # Kernels C (chol), D (cho_solve) and E (trinv): float32 and float64 at
-    # the main shape m = 100 (B = 4096), at an odd m = 37 and at the
-    # largest m chol_fits allows (B = 64), with R batched and shared, with
-    # and without the shift and the rhs; one lane of the batched R is not
-    # SPD and must come back NaN in that lane alone.
+    # the main shape m = 100 (B = 4096), at the ragged panel sizes m = 1,
+    # 31, 32, 33, 37, 65 (panels of 32 rows) and at the largest m chol_fits
+    # allows (B = 64), with R batched and shared, with and without the
+    # shift and the rhs; one lane of the batched R is not SPD and must come
+    # back NaN in that lane alone.
     m_max = {torch.float32: 239, torch.float64: 168}
     for dtype in (torch.float32, torch.float64):
         check(kernels.chol_fits(m_max[dtype], dtype)
               and not kernels.chol_fits(m_max[dtype] + 1, dtype),
               f"chol_fits' largest m for {dtype}")
         tol = TOL_F32 if dtype == torch.float32 else TOL_F64
-        for nb, m_ in ((B, NINEQ), (64, 37), (64, m_max[dtype])):
+        for nb, m_ in ((B, NINEQ), (64, 1), (64, 31), (64, 32), (64, 33),
+                       (64, 37), (64, 65), (64, m_max[dtype])):
             for shared in (False, True):
                 R_ = spd(1 if shared else nb, m_, dtype, 110)
                 dinv_, rhs_ = vecs(nb, m_, dtype, 111, k=2)
@@ -621,8 +624,15 @@ def main():
                                  "cho_solve") if (nb, n_, dtype)
                                 == (B, NINEQ, torch.float32) else None)
             del Lt_all, v_all
-        for nb, n_ in ((B, NINEQ), (64, 37)):
-            Lt_ = kernels.chol(spd(nb, n_, dtype, 114))
+        # Kernel E at the ragged panel sizes and up to the largest fit: one
+        # tile now, so float32 n = 200, 239 and float64 n = 150, 168 launch
+        # (two tiles fitted only n <= 169 / 120); spd_inverse (kernel C,
+        # kernel E, the Gram product) at the largest two.
+        big = (200, 239) if dtype == torch.float32 else (150, 168)
+        for nb, n_ in ((B, NINEQ), (64, 1), (64, 31), (64, 32), (64, 33),
+                       (64, 37), (64, 65)) + tuple((64, k) for k in big):
+            A_ = spd(nb, n_, dtype, 114)
+            Lt_ = kernels.chol(A_)
             got = kernels.trinv(Lt_)
             torch.cuda.synchronize()
             compare(f"trinv {dtype} B={nb} n={n_}", got,
@@ -631,7 +641,13 @@ def main():
                     else None)
             check(not bool(torch.triu(got, 1).any()),
                   "trinv: nonzero entries above the diagonal")
-    del R_, dinv_, rhs_, Lt_, F_, v_, got, want, noise
+            if n_ in big:
+                Ai = chol_ops.spd_inverse(A_)
+                torch.cuda.synchronize()
+                Lp_ = kernels.trinv_plain(kernels.chol_plain(A_))
+                compare(f"spd_inverse {dtype} B={nb} n={n_}", Ai,
+                        torch.matmul(Lp_.transpose(-1, -2), Lp_), tol)
+    del R_, dinv_, rhs_, Lt_, F_, v_, got, want, noise, A_, Ai, Lp_
 
     # ---- phase 3: forward at full width through the kernels ----
     Q, p, G, h = make_problem(B, NZ, NINEQ, seed=0)
@@ -1958,18 +1974,15 @@ def main():
             out[key] = dict(ms=cuda_ms(k_fn), plain_ms=cuda_ms(p_fn),
                             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
                             library_ms=cuda_ms(l_fn), library_call=l_name)
-            extra = ""
-            if key.startswith("cho_solve"):
-                # Kernel D's launches are short beside the host time of one
-                # launch, which ``ms`` includes: the device time alone too.
-                out[key].update(device_ms=device_ms(k_fn),
-                                library_device_ms=device_ms(l_fn))
-                extra = ", ".join(
-                    f"{w} {v:.4f} ms" if v is not None else f"{w} not measured"
-                    for w, v in (("device", out[key]["device_ms"]),
-                                 ("library device",
-                                  out[key]["library_device_ms"])))
-                extra = ", " + extra
+            # ``ms`` includes the host time of one launch: the profiler's
+            # device time alone beside it, the kernel's and the library's.
+            out[key].update(device_ms=device_ms(k_fn),
+                            library_device_ms=device_ms(l_fn))
+            extra = ", " + ", ".join(
+                f"{w} {v:.4f} ms" if v is not None else f"{w} not measured"
+                for w, v in (("device", out[key]["device_ms"]),
+                             ("library device",
+                              out[key]["library_device_ms"])))
             print(f"# phase 10: {key} {dtype}: {out[key]['ms']:.3f} ms "
                   f"(plain {out[key]['plain_ms']:.3f} ms, bound {b_ms:.4f} "
                   f"ms by {b_by}, {nbytes / 1e6:.1f} MB, library "
@@ -1978,6 +1991,13 @@ def main():
         return out
 
     cf32, cf64 = chol_facts(torch.float32), chol_facts(torch.float64)
+    # Block barriers one QP passes in kernels C and E (constants of the
+    # sources: csrc/chol.cu::chol_barriers, csrc/trinv.cu::trinv_barriers).
+    chol_bar = build.load("chol").qpth_chol_barriers
+    trinv_bar = build.load("trinv").qpth_trinv_barriers
+    print(f"# phase 10: block barriers per QP at m={m}: kernel C "
+          f"{chol_bar(m, 0)} (with rhs {chol_bar(m, 1)}), kernel E "
+          f"{trinv_bar(m)}")
     la6 = path_launches["path6_blocked"]["a_forward_backward"]
     lb6 = path_launches["path6_blocked"]["b_forward_backward"]
     fused_note = ("path 6a forward+backward; every launch of kernel C with "

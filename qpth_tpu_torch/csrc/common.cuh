@@ -176,79 +176,6 @@ __device__ void chol_inv_smem(T* Tm, const T* dinv, T* isqv, int m) {
   __syncthreads();
 }
 
-// m-vectors the Cholesky kernel (csrc/chol.cu) keeps beside its one m x m
-// tile: dinv, the pivots' rsqrt, and the rhs and solution of the fused solve.
-// The Python wrappers use the same count in `chol_fits`.
-constexpr int kCholVectors = 4;
-
-// Right-looking rank-1 Cholesky of T + diag(dinv), in place (the recurrence
-// of the TPU kernel's _chol_inplace, lanes.py:113-142):
-//   pivot step j:  piv = T[j][j] + dinv[j],  isq = rsqrt(piv),
-//                  Lt[j][j] = piv isq,  Lt[j][k] = T[j][k] isq      (k > j),
-//                  T[k][e] -= Lt[j][k] Lt[j][e]                (j < k <= e).
-// The shift is folded into pivot j lazily: by step j, T[j][j] holds every
-// earlier rank-1 downdate. Only the upper triangle of the symmetric T is read
-// (row j of the trailing block is its column j) and updated. Row j stays
-// unscaled during the sweep, because step j reads row j and writes rows > j
-// only: one barrier per pivot step. Its scale isq is kept in isqv[j] and a
-// last pass scales the rows, so on exit Tm holds Lt = chol(T + diag(dinv))^T,
-// upper triangular with exact zeros below the diagonal. A negative pivot
-// gives NaN (rsqrt), which spreads over the rest of that QP's factor only.
-template <typename T, bool SHIFT>
-__device__ void chol_smem(T* Tm, const T* dinv, T* isqv, int m) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int j = 0; j < m; ++j) {
-    const T* rowj = Tm + j * m;
-    const T piv = SHIFT ? rowj[j] + dinv[j] : rowj[j];
-    const T isq = rsqrt_t(piv);
-    if (threadIdx.x == 0) isqv[j] = isq;
-    for (int k = j + 1 + warp; k < m; k += nwarps) {
-      const T lk = rowj[k] * isq;
-      T* trow = Tm + k * m;
-      for (int e = k + lane; e < m; e += 32) trow[e] -= lk * (rowj[e] * isq);
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < m * m; i += blockDim.x) {
-    const int r = i / m, c = i - r * m;
-    if (c > r) Tm[i] *= isqv[r];
-    else if (c == r) Tm[i] = (SHIFT ? Tm[i] + dinv[r] : Tm[i]) * isqv[r];
-    else Tm[i] = T(0);
-  }
-  __syncthreads();
-}
-
-// Forward substitution L y = r in place from U = Lt (row j of U is column j
-// of L; leading dimension ld), SAXPY form over the rows of U:
-//   y_j = r_j / U[j][j],  r_k -= U[j][k] y_j   (k > j).
-// One warp runs it; the other threads of the block must not touch r.
-template <typename T>
-__device__ void lt_forward_warp(const T* U, int ld, T* r, int n) {
-  const int lane = threadIdx.x & 31;
-  for (int j = 0; j < n; ++j) {
-    const T yj = r[j] / U[j * ld + j];
-    for (int k = j + 1 + lane; k < n; k += 32) r[k] -= U[j * ld + k] * yj;
-    __syncwarp();  // every lane has read r[j]
-    if (lane == 0) r[j] = yj;
-  }
-}
-
-// Back substitution L^T x = y from U = Lt, as row dot products:
-//   x_i = (y_i - sum_{k > i} U[i][k] x_k) / U[i][i].
-// One warp runs it; x must not alias y.
-template <typename T>
-__device__ void lt_backward_warp(const T* U, int ld, const T* y, T* x, int n) {
-  const int lane = threadIdx.x & 31;
-  for (int i = n - 1; i >= 0; --i) {
-    T acc = T(0);
-    for (int k = i + 1 + lane; k < n; k += 32) acc += U[i * ld + k] * x[k];
-    acc = warp_sum(acc);
-    if (lane == 0) x[i] = (y[i] - acc) / U[i * ld + i];
-    __syncwarp();
-  }
-}
-
 // x = G^T (G r) = T^-1 r from the inverse factor G. Thread c returns x[c]
 // (0 for c >= m). `w` is an m-vector of scratch. Ends with a barrier, so the
 // caller may overwrite r and w right after.

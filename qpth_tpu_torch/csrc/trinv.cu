@@ -4,64 +4,120 @@
 // the triangular inverse inside spd_inverse, whose Gram product invL^T invL
 // stays a torch.matmul, as it stays outside the Pallas kernel there).
 //
-// One thread block per QP stages Lt and the inverse in shared memory. Column
-// c of inv(L) is the forward substitution L x = e_c, independent of the other
-// columns, so thread c runs it in SAXPY form over the rows of Lt:
-//   x_j /= Lt[j][j],  x_k -= Lt[j][k] x_j   (k > j),   for j = c .. n-1.
-// All threads walk the same (j, k) (thread c idles for j < c), so every read
-// of Lt is a broadcast, and
-// thread c's column is X[.][c], on consecutive addresses across the warp: no
-// barrier after the staging. The output is lower triangular in row layout
+// One thread block per QP holds Lt and the inverse in one m x m
+// shared-memory tile, the layout of csrc/common.cuh::chol_inv_smem: Lt's
+// strictly upper triangle above the diagonal, inv(L)'s lower triangle and
+// diagonal on and below it, and the reciprocals of Lt's diagonal in one
+// m-vector. It launches with kernel C's working set (panel.cuh::
+// chol_smem_bytes, checked by kernels.py::chol_fits: m <= 239 in float32,
+// <= 168 in float64): whatever C factors, E inverts. The
+// algorithm is the TPU kernel's _trinv_kernel (cholesky.py:203) in panels of
+// 32 rows (panel.cuh):
+//   * all nb = ceil(m / 32) <= 8 diagonal blocks are inverted at once, one
+//     warp each, X_ii = inv(L_ii) by forward substitution in registers;
+//   * then for row block i = 1 .. nb - 1, with L[i, :i] read as Lt's columns,
+//       C = -L[i, :i] invL[:i, :i]      all warps, 4 x 4 register tiles,
+//       invL[i, :i] = X_ii C            a thread per column, in place.
+// Barriers: 1 after the staging, 1 after the diagonal blocks and 2 per row
+// block, 2 nb in all (8 at m = 100), and no dependent chain longer than a
+// diagonal block's 32 steps. The output is lower triangular in row layout
 // (row i of inv(L) in row i) with exact zeros above the diagonal.
 //
 // What bounds it on an H100: bytes. At B = 4096, n = 100 in float32 the
 // triangles of Lt in and invL out take >= 0.049 ms at 3.35 TB/s; its n^3 / 6
-// multiply-adds per QP take 0.020 ms at 67 TFLOP/s. This first version is
-// bound by the n^2 / 2 dependent shared-memory steps of column 0.
-#include "common.cuh"
+// multiply-adds per QP take 0.020 ms at 67 TFLOP/s. The diagonal blocks'
+// chains (32 steps, one warp each, all at once) and the 2 nb barriers are
+// what a block waits on; the one tile lets 4 (float32, the register cap) or
+// 2 (float64) blocks share an SM.
+#include "panel.cuh"
 
 namespace qpth {
 
+__host__ __device__ constexpr int trinv_barriers(int n) {
+  return 2 * ((n + kPanelWidth - 1) / kPanelWidth);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-trinv_kernel(const T* __restrict__ Lt, T* __restrict__ invL, int n, int ld) {
+__global__ void __launch_bounds__(kThreads, PanelBlocks<T>::value)
+trinv_kernel(const T* __restrict__ Lt, T* __restrict__ invL, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* U = reinterpret_cast<T*>(smem_raw);  // Lt
-  T* X = U + n * ld;                      // inv(L), X[k][c] at k * ld + c
+  T* Tm = reinterpret_cast<T*>(smem_raw);
+  T* rd = Tm + n * n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   const long long b = blockIdx.x;
   const T* Lb = Lt + b * n * n;
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
-    const int r = i / n, c = i - r * n;
-    if (c >= r) U[r * ld + c] = Lb[i];
-    X[r * ld + c] = r == c ? T(1) : T(0);
+  for (int r = warp; r < n; r += kWarps)  // the upper triangle only
+    for (int c = r + lane; c < n; c += 32) {
+      const T v = Lb[r * n + c];
+      if (c > r) Tm[r * n + c] = v;
+      else rd[r] = T(1) / v;
+    }
+  __syncthreads();
+
+  const int nb = (n + kPanelWidth - 1) / kPanelWidth;
+  if (warp < nb) {
+    const int p0 = kPanelWidth * warp;
+    trinv_diag_block(Tm, n, p0, min(kPanelWidth, n - p0), rd, lane);
   }
   __syncthreads();
-  // Column c is zero above row c: thread c joins at step j = c.
-  const int c = threadIdx.x;
-  for (int j = 0; j < n; ++j) {
-    if (c > j) continue;
-    const T xj = X[j * ld + c] / U[j * ld + j];
-    X[j * ld + c] = xj;
-    for (int k = j + 1; k < n; ++k) X[k * ld + c] -= U[j * ld + k] * xj;
+
+  for (int I0 = kPanelWidth; I0 < n; I0 += kPanelWidth) {
+    const int w = min(kPanelWidth, n - I0);
+    // C = -L[I, :I] invL[:I, :I] into rows I0 .. I0 + w - 1, columns < I0:
+    // C[r][c] = -sum_{c <= k < I0} Lt[k][I0 + r] invL[k][c].
+    const int ntc = I0 / kTileCols;
+    const int ntiles = ntc * ((w + kTileRows - 1) / kTileRows);
+    for (int t = warp; t < ntiles; t += kWarps) {
+      const int tr = t / ntc, tc = t - tr * ntc;
+      int r[4], c[4], ar[4], bc[4];
+      tile_coords(kTileRows * tr, kTileCols * tc, lane, r, c);
+      T acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ar[i] = I0 + min(r[i], w - 1);
+        bc[i] = min(c[i], I0 - 1);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = T(0);
+      }
+      tile_update<T, true, 4>(acc, Tm, Tm, n, ar, bc, kTileCols * tc, I0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (r[i] < w && c[q] < I0) Tm[(I0 + r[i]) * n + c[q]] = acc[i][q];
+    }
+    __syncthreads();
+    // invL[I, c] = X_II C[:, c], a thread per column c < I0, rows descending
+    // so that each result overwrites a C entry no later row needs.
+    const T* X = Tm + I0 * n + I0;
+    for (int c = threadIdx.x; c < I0; c += blockDim.x) {
+      T* col = Tm + I0 * n + c;
+      T y[kPanelWidth];
+#pragma unroll
+      for (int s = 0; s < kPanelWidth; ++s) y[s] = s < w ? col[s * n] : T(0);
+#pragma unroll
+      for (int r = kPanelWidth - 1; r >= 0; --r) {
+        if (r >= w) continue;
+        T acc = T(0);
+#pragma unroll
+        for (int s = 0; s <= r; ++s) acc += X[r * n + s] * y[s];
+        col[r * n] = acc;
+      }
+    }
+    __syncthreads();
   }
-  __syncthreads();
-  T* Ob = invL + b * n * n;
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
-    const int r = i / n;
-    Ob[i] = X[r * ld + (i - r * n)];
-  }
+
+  store_triangle<T, false>(invL + b * n * n, Tm, n, 0, kWarps, warp, lane);
 }
 
 template <typename T>
 static int launch(const void* Lt, void* invL, int B, int n, void* stream) {
-  const int ld = n | 1;
-  const size_t smem = 2 * size_t(n) * ld * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      trinv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  const size_t smem = chol_smem_bytes<T>(n);  // kernel C's working set
+  const cudaError_t err = set_smem(trinv_kernel<T>, smem);
   if (err != cudaSuccess) return int(err);
   trinv_kernel<T><<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(Lt), static_cast<T*>(invL), n, ld);
+      static_cast<const T*>(Lt), static_cast<T*>(invL), n);
   return int(cudaGetLastError());
 }
 
@@ -78,3 +134,6 @@ extern "C" int qpth_trinv_f64(const void* Lt, void* invL, int B, int n,
                               void* stream) {
   return qpth::launch<double>(Lt, invL, B, n, stream);
 }
+
+// Block barriers one QP of width n passes.
+extern "C" int qpth_trinv_barriers(int n) { return qpth::trinv_barriers(n); }

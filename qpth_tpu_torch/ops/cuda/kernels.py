@@ -67,8 +67,8 @@ RED_WORDS = THREADS // 32
 DIAG_N_VECTORS = 10
 DIAG_EQ_VECTORS = 5
 
-#: m-vectors the Cholesky kernel keeps beside its one m x m tile
-#: (``kCholVectors`` in csrc/common.cuh).
+#: m-vectors kernels C and E launch with beside their one m x m tile
+#: (``kCholVectors`` in csrc/panel.cuh).
 CHOL_VECTORS = 4
 
 LAUNCHES = {"factor_inv": 0, "factor_inv_solve": 0,
@@ -118,8 +118,9 @@ def diag_step_fits(n: int, neq: int, dtype) -> bool:
 def chol_fits(m: int, dtype) -> bool:
     """Whether kernel C's working set fits a thread block: one m x m tile
     plus CHOL_VECTORS m-vectors within 227 KB, and m <= THREADS (float32:
-    m <= 239; float64: m <= 168). Kernel D reads the factors kernel C
-    makes, so the same predicate bounds it; its own working set is smaller
+    m <= 239; float64: m <= 168). Kernels D and E read the factors kernel
+    C makes, so the same predicate bounds them. E launches with C's
+    working set (``chol_smem_bytes`` in csrc/panel.cuh); D's is smaller
     (per lane: a 32 x 33 tile per warp; shared factor: the packed
     triangle, a 32 x 32 diagonal block and n x 33 right-hand sides, 151 KB
     at m = 239 in float32, 167 KB at m = 168 in float64)."""
@@ -635,8 +636,12 @@ def chol(R, dinv=None, rhs=None):
     ``qpth_tpu/ops/pallas/lanes.py``'s ``factor_kkt_lanes`` and
     ``factor_solve_kkt_lanes``. On the H100 it is bound by bytes: R's
     triangle in and Lt's out (>= 0.049 ms at B = 4096, m = 100, f32). One
-    block per QP keeps T in one m x m shared-memory tile through the rank-1
-    recurrence; see csrc/chol.cu.
+    block per QP keeps T in one m x m shared-memory tile and factors it in
+    panels of 32 rows: one warp's chain over each diagonal block, the
+    panel's rows by a substitution per column, the trailing update on
+    register tiles by all warps, 3 barriers per panel; the solve rides in
+    the panel loop as one more column, then a back substitution by panels.
+    See csrc/chol.cu and csrc/panel.cuh.
 
     Returns Lt, or (Lt, x) when ``rhs`` is given."""
     m = R.shape[-1]
@@ -765,13 +770,20 @@ def trinv(Lt):
 
     Replaces the TPU kernel ``qpth_tpu/ops/pallas/cholesky.py::trinv_pallas``.
     On the H100 it is bound by bytes: Lt's triangle in and invL's out
-    (>= 0.049 ms at B = 4096, n = 100, f32). One block per QP keeps Lt and
-    the inverse in shared memory, a thread per column of the inverse; see
-    csrc/trinv.cu."""
+    (>= 0.049 ms at B = 4096, n = 100, f32). One block per QP keeps Lt's
+    strict upper triangle and the inverse's lower one in one n x n
+    shared-memory tile; one warp per 32 x 32 diagonal block inverts it,
+    then the row blocks follow by block products on register tiles (2
+    barriers each); see csrc/trinv.cu. It launches with kernel C's working
+    set, and the wrapper checks ``chol_fits``: whatever kernel C factors,
+    kernel E inverts (n <= 239 in float32, <= 168 in float64)."""
     B, n = Lt.shape[0], Lt.shape[-1]
-    _check("trinv", Lt, (), B, n)
+    _check("trinv", Lt, (), B, n, tiles=False)
     if Lt.device.type == "cpu":
         return trinv_plain(Lt)
+    if not chol_fits(n, Lt.dtype):
+        raise ValueError(f"trinv: n = {n} exceeds the one-block shared "
+                         f"memory fit for {Lt.dtype}")
     fn = _fn("trinv", f"qpth_trinv_{_SUFFIX[Lt.dtype]}", 2, 2)
     out = torch.empty_like(Lt)
     with torch.cuda.device(Lt.device):

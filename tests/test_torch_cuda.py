@@ -381,7 +381,7 @@ CHOL_MAX = {torch.float32: 239, torch.float64: 168}
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("variant", ["plain_factor", "shift", "shift_rhs",
                                      "rhs"])
-@pytest.mark.parametrize("m", [1, 37, 100, "max"])
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 37, 65, 100, "max"])
 def test_chol_kernel_matches_plain(cuda, m, variant, shared, dtype):
     m = CHOL_MAX[dtype] if m == "max" else m
     assert kernels.chol_fits(m, dtype)
@@ -467,8 +467,13 @@ def test_cho_solve_kernel_nan_lane_is_nan_alone(cuda, lower, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 37, 100])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 37, 65, 100, "mid", "max"])
 def test_trinv_kernel_matches_plain(cuda, n, dtype):
+    """Ragged panels, and n up to the largest fit of kernel C, which kernel
+    E now shares (float32 200 and 239, float64 150 and 168: beyond a
+    two-tile working set)."""
+    n = {"mid": {torch.float32: 200, torch.float64: 150}[dtype],
+         "max": CHOL_MAX[dtype]}.get(n, n)
     B = 16
     Lt = kernels.chol(_spd(B, n, dtype, cuda).contiguous())
     kernels.reset_launches()
@@ -477,6 +482,25 @@ def test_trinv_kernel_matches_plain(cuda, n, dtype):
     assert kernels.LAUNCHES["trinv"] == 1
     assert (got - kernels.trinv_plain(Lt)).abs().max().item() <= TOL[dtype]
     assert not torch.triu(got, 1).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", ["mid", "max"])
+def test_spd_inverse_at_the_largest_fit(cuda, n, dtype):
+    """ops/cholesky.py::spd_inverse (kernels C and E, the Gram product) at
+    float32 n = 200, 239 and float64 n = 150, 168."""
+    from qpth_tpu_torch.ops import cholesky as chol_ops
+    n = {"mid": {torch.float32: 200, torch.float64: 150}[dtype],
+         "max": CHOL_MAX[dtype]}[n]
+    A = _spd(8, n, dtype, cuda).contiguous()
+    kernels.reset_launches()
+    got = chol_ops.spd_inverse(A)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["chol"] == 1 and kernels.LAUNCHES["trinv"] == 1
+    Lp = kernels.trinv_plain(kernels.chol_plain(A))
+    want = torch.matmul(Lp.transpose(-1, -2), Lp)
+    assert (got - want).abs().max().item() <= TOL[dtype] * max(
+        1.0, want.abs().max().item())
 
 
 @pytest.mark.parametrize("case", ["f32_inverse", "f64_subst_eq",
