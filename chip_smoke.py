@@ -63,6 +63,9 @@ N_F64_CARD, N_F64_CPU = 256, 64   # lanes re-solved in float64
 TOL_F32 = 1e-3                    # kernel vs plain, float32, main shape
 TOL_F64 = 1e-10                   # kernel vs plain, float64, odd shape
 TOL_D64 = 1e-12                   # kernel D vs plain, float64, every shape
+# Kernel 5's sizes in phase 2: both ends of each 32-column slot of a lane,
+# path 5's 40, the main 100, and kernel A's largest fits (166 f64, 237 f32).
+INV_SOLVE_M = (1, 7, 13, 16, 17, 31, 32, 33, 40, 64, 100, 166, 237)
 # Backward clamp at which path 5 holds the float32 gradient to A, path 2's:
 # at the default 1e-8 a few lanes of the sudoku QP have more than nx - neq
 # active bounds and M = A diag(1/H) A^T (condition ~1e9 there) is beyond
@@ -401,6 +404,48 @@ def main():
                       and bool(torch.equal(got[0][5], x_[5])),
                       f"{name_}: non-SPD lane was not frozen")
     del Linv, mats, v, got
+
+    # Kernel 5 at every m from 1 to kernel A's largest fit, at B = 1, 64 and
+    # B + 1 (a ragged last block of QPs). The kernel gets Linv with NaN above
+    # the diagonal, which it must not read (the plain version gets the
+    # zeros); where B > 3, lane 3 holds a NaN on its diagonal that must stay
+    # in lane 3. Rows of whole 16-byte vectors take the vector path; any
+    # other m, or an rhs one element off a 16-byte boundary, the scalar path.
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        elt_ = torch.empty((), dtype=dtype).element_size()
+        for m_ in INV_SOLVE_M:
+            if not kernels.fits(m_, dtype):
+                continue
+            Linv_all = kernels.factor_inv(
+                spd(B + 1, m_, dtype, 130), vecs(B + 1, m_, dtype, 131,
+                                                 k=1)[0])
+            rhs_all = vecs(B + 1, m_, dtype, 132, k=1)[0] - 1.0
+            upper = torch.ones(m_, m_, dtype=torch.bool, device=dev).triu(1)
+            for nb in (1, 64, B + 1):
+                clean = Linv_all[:nb].clone()
+                if nb > 3:
+                    clean[3, m_ // 2, m_ // 2] = float("nan")
+                dirty = clean.masked_fill(upper, float("nan"))
+                offsets = (0, 1) if nb == B + 1 and m_ in (40, NINEQ) else (0,)
+                for off in offsets:
+                    buf = torch.empty(nb * m_ + off, dtype=dtype, device=dev)
+                    rhs_ = buf[off:].view(nb, m_)
+                    rhs_.copy_(rhs_all[:nb])
+                    got = kernels.inv_solve(dirty, rhs_)
+                    torch.cuda.synchronize()
+                    want = kernels.inv_solve_plain(clean, rhs_)
+                    bad = torch.isnan(got).any(dim=1)
+                    check(bool(torch.equal(bad, torch.isnan(want).any(dim=1)))
+                          and bad.tolist() == [k == 3 and nb > 3
+                                               for k in range(nb)],
+                          f"inv_solve {dtype} B={nb} m={m_}: the NaN lane is "
+                          "not NaN alone, or the upper triangle was read")
+                    path = ("16-byte" if (m_ * elt_) % 16 == 0 and off == 0
+                            else "scalar")
+                    compare(f"inv_solve {dtype} B={nb} m={m_} ({path} path, "
+                            "NaN above the diagonal)", got[~bad], want[~bad],
+                            tol)
+            del Linv_all, rhs_all, clean, dirty, buf, rhs_
 
     # Kernel 11 (diag_step): float32 at path 5's shape (n = 64, neq = 40)
     # with g shared and batched, float64 at an odd shape with n beyond the
@@ -1661,6 +1706,23 @@ def main():
             ts.append(a.elapsed_time(b))
         return statistics.median(ts)
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, reps=10):
+        """Device time of one call of ``fn``: the profiler's sum of the
+        device-side events of ``reps`` calls, over ``reps`` (None where the
+        profiler sees no device time)."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        return total / 1e3 / reps if total else None
+
     R = spd(B, NINEQ, torch.float32, 5)
     dinv, rhs, z, q = vecs(B, NINEQ, torch.float32, 6)
     m, elt = NINEQ, 4
@@ -1763,11 +1825,16 @@ def main():
 
         nbytes = (tri + 2 * B * m) * elt_
         b_ms_, b_by_ = bound(nbytes, 4.0 * tri, peak)
-        return dict(ms=cuda_ms(lambda: kernels.inv_solve(Linv_, rhs_)),
+
+        def k_fn():
+            return kernels.inv_solve(Linv_, rhs_)
+
+        return dict(ms=cuda_ms(k_fn),
                     plain_ms=cuda_ms(
                         lambda: kernels.inv_solve_plain(Linv_, rhs_)),
                     bound_ms=b_ms_, bound_by=b_by_, bound_bytes=nbytes,
-                    library_ms=cuda_ms(library))
+                    library_ms=cuda_ms(library), device_ms=device_ms(k_fn),
+                    library_device_ms=device_ms(library))
 
     inv64 = inv_solve_facts(Linv64, rhs64 - 1.0, 8, f64_peak)
     inv32 = dict(inv_solve_facts(Linv, rhs - 1.0, elt, f32_peak),
@@ -1878,7 +1945,8 @@ def main():
         row["path5_m40"] = dict(
             launches=fb5[name_], ms=cuda_ms(k_fn), plain_ms=cuda_ms(p_fn),
             bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes,
-            library_ms=cuda_ms(l_fn), dtype="float32")
+            library_ms=cuda_ms(l_fn), dtype="float32",
+            device_ms=device_ms(k_fn), library_device_ms=device_ms(l_fn))
     for r in [rows[-1]] + [r for r in rows if "path5_m40" in r]:
         f_ = r if r["name"] == "diag_step" else r["path5_m40"]
         lib = (f", library {f_['library_ms']:.3f} ms"
@@ -1888,6 +1956,20 @@ def main():
               f"ms by {f_['bound_by']}, {f_['bound_bytes'] / 1e6:.1f} MB"
               f"{lib}) at B={B} n={nx} neq={neq5} float32; launches on "
               f"path 5 forward+backward {f_['launches']}")
+    # Kernel 5 at its three shapes: CUDA events around one launch include
+    # the wrapper's host time; the profiler's device time is the kernel's.
+    inv_row = next(r for r in rows if r["name"] == "inv_solve")
+    for tag, f_ in (("m=40 float32", inv_row["path5_m40"]),
+                    ("m=100 float32", inv32), ("m=100 float64", inv_row)):
+        dev_, lib_ = f_["device_ms"], f_["library_device_ms"]
+        print(f"# phase 10: inv_solve {tag}: device "
+              + (f"{dev_:.4f} ms, host share of one launch "
+                 f"{f_['ms'] - dev_:.4f} ms" if dev_ is not None
+                 else "not measured")
+              + f" (events {f_['ms']:.4f} ms, bound {f_['bound_ms']:.4f} "
+              "ms); library (torch.matmul twice) device "
+              + (f"{lib_:.4f} ms" if lib_ is not None else "not measured")
+              + f", events {f_['library_ms']:.4f} ms")
     del args11, M5, Linv5, eye5
     del mats, v, Linv, Linv64, R64, step_args, eq_args
 
@@ -1895,23 +1977,6 @@ def main():
     # float64. Bounds count R and the factors by their triangles; the
     # Cholesky factor and the triangular inverse take m^3 / 3 flops each,
     # the two substitutions 2 m^2.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def device_ms(fn, reps=10):
-        """Device time of one call of ``fn``: the profiler's sum of the
-        device-side events of ``reps`` calls, over ``reps`` (None where the
-        profiler sees no device time)."""
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
-        return total / 1e3 / reps if total else None
-
     def chol_facts(dtype):
         elt_ = torch.empty((), dtype=dtype).element_size()
         peak = f32_peak if dtype == torch.float32 else f64_peak

@@ -254,9 +254,12 @@ def inv_solve(Linv, rhs):
 
     Replaces the TPU kernel ``qpth_tpu/ops/pallas/lanes.py::inv_solve_lanes``.
     On the H100 it is bound by bytes: Linv's lower triangle read once
-    (>= 0.026 ms at B = 4096, m = 100, f32; 0.051 ms at f64). One block per QP streams Linv's rows through
-    registers, each row used for both products, so Linv is read from device
-    memory exactly once and no tile is kept on chip; see csrc/inv_solve.cu."""
+    (>= 0.026 ms at B = 4096, m = 100, f32; 0.051 ms at f64; 0.0044 ms at
+    m = 40, f32). One warp per QP (half a warp where m is small), 8 or 16
+    QPs per block, streams Linv's rows through registers several at a
+    time, each row used for both products, with 16-byte loads where the
+    operands' addresses and m allow; only the lower triangle is read. See
+    csrc/inv_solve.cu."""
     B, m = rhs.shape
     if Linv.shape != (B, m, m):
         raise ValueError(f"inv_solve: Linv must be ({B}, {m}, {m}), "

@@ -78,19 +78,90 @@ def _rand(shape, dtype, device, seed, scale=1.0):
                      - 0.5)).to(dtype=dtype, device=device)
 
 
+def _linv(B, m, dtype, device):
+    """Kernel A's Linv; beyond its fit (f64 m > 166) the plain version's,
+    which kernel 5 takes up to m = 256."""
+    R = _spd(B, m, dtype, device)
+    dinv, rhs, _ = _vecs(B, m, dtype, device)
+    fac = kernels.factor_inv if kernels.fits(m, dtype) else \
+        kernels.factor_inv_plain
+    return fac(R, dinv), rhs
+
+
+def _upper_nan(Linv):
+    m = Linv.shape[-1]
+    return Linv.masked_fill(torch.ones(m, m, dtype=torch.bool,
+                                       device=Linv.device).triu(1),
+                            float("nan"))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m", [37, 100])
+@pytest.mark.parametrize("m", [1, 7, 13, 16, 17, 31, 32, 33, 37, 40, 64,
+                               100, 166, 237])
 def test_inv_solve_kernel_matches_plain(cuda, m, dtype):
+    """Every m up to kernel A's largest fit (237 f32, 166 f64; f64 237
+    from the plain factor): odd m takes the scalar path, rows of whole
+    16-byte vectors the vector path."""
     B = 64
-    R = _spd(B, m, dtype, cuda)
-    dinv, rhs, _ = _vecs(B, m, dtype, cuda)
-    Linv = kernels.factor_inv(R, dinv)
+    Linv, rhs = _linv(B, m, dtype, cuda)
     kernels.reset_launches()
     got = kernels.inv_solve(Linv, rhs)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["inv_solve"] == 1
     want = kernels.inv_solve_plain(Linv, rhs)
     assert (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [33, 40, 100])
+def test_inv_solve_kernel_ragged_batch_nan(cuda, m, dtype):
+    """B = 4097 leaves a ragged last block of QPs; the kernel gets NaN above
+    the diagonal, which it must not read, and lane 3's NaN stays in lane
+    3."""
+    B = 4097
+    Linv, rhs = _linv(B, m, dtype, cuda)
+    Linv[3, m // 2, m // 2] = float("nan")
+    got = kernels.inv_solve(_upper_nan(Linv), rhs)
+    torch.cuda.synchronize()
+    want = kernels.inv_solve_plain(Linv, rhs)
+    bad = torch.isnan(got).any(dim=1)
+    assert bad.tolist() == [k == 3 for k in range(B)]
+    assert torch.equal(bad, torch.isnan(want).any(dim=1))
+    assert (got[~bad] - want[~bad]).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [16, 40, 100])
+def test_inv_solve_kernel_scalar_path_off_16_bytes(cuda, m, dtype):
+    """An rhs one element off a 16-byte boundary takes the scalar path at
+    an m whose rows are whole 16-byte vectors; the result is the aligned
+    call's to rounding."""
+    B = 129
+    Linv, rhs = _linv(B, m, dtype, cuda)
+    buf = torch.empty(B * m + 1, dtype=dtype, device=cuda)
+    rhs_off = buf[1:].view(B, m)
+    rhs_off.copy_(rhs)
+    assert rhs_off.data_ptr() % 16 != 0
+    dirty = _upper_nan(Linv)
+    got = kernels.inv_solve(dirty, rhs_off)
+    aligned = kernels.inv_solve(dirty, rhs)
+    torch.cuda.synchronize()
+    want = kernels.inv_solve_plain(Linv, rhs)
+    for x in (got, aligned):
+        assert (x - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_inv_solve_kernel_at_its_limit(cuda, dtype):
+    """m = 256, the wrapper's limit, solves; m = 257 raises."""
+    Linv, rhs = _linv(8, 256, dtype, cuda)
+    got = kernels.inv_solve(_upper_nan(Linv), rhs)
+    torch.cuda.synchronize()
+    want = kernels.inv_solve_plain(Linv, rhs)
+    assert (got - want).abs().max().item() <= TOL[dtype]
+    Lbig, rbig = _linv(2, 257, dtype, cuda)
+    with pytest.raises(ValueError):
+        kernels.inv_solve(Lbig, rbig)
 
 
 def _step_operands(B, m, nz, neq, shared, dtype, device):
