@@ -25,7 +25,12 @@ through the kernels at full width (B = 4096, float32 unless said):
   D and E): bench.py's workload in float32 inverse mode and the OptNet
   pattern, path 1's data in float32 substitution mode, both in float64,
   and (6d) the OptNet pattern in substitution mode, float32 and float64,
-  whose Q solves run on one shared factor.
+  whose Q solves run on one shared factor;
+* path 7: mixed-precision refinement (eps = 1e-8: float64 residuals, one
+  kernel A or kernel C with rhs per step) on the bench workload, path 1's
+  data and under "blocked", float64 card against CPU with refinement on,
+  escalation of 32 planted cond ~1e8 lanes to the CPU oracle,
+  ``QPSolvers.CPU_ORACLE``, ``KKTSolver.FULL`` / ``IR`` and ``verbose=1``.
 
 It checks the results against float64 solves on the card and on the CPU
 and times kernels and solves with CUDA events. Any failed check exits
@@ -37,7 +42,9 @@ preceded by a {"kernels": [...]} line. Without CUDA it exits nonzero and
 prints no result.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
@@ -693,6 +700,39 @@ def main():
                 compare(f"spd_inverse {dtype} B={nb} n={n_}", Ai,
                         torch.matmul(Lp_.transpose(-1, -2), Lp_), tol)
     del R_, dinv_, rhs_, Lt_, F_, v_, got, want, noise, A_, Ai, Lp_
+
+    # Refinement's solve (path 7): kernel A with rhs under "auto", kernel C
+    # with rhs under "blocked", on T = R + diag(1/d) with refinement's
+    # clamped d = max(z, c) / max(s, c), c = 1e-10. Active rows (s -> 0)
+    # give d ~ 1e10, inactive ones (z -> 0) d ~ 1e-10, so T's diagonal
+    # holds 1/d from ~1e-10 to ~1e10 beside R's O(1) entries.
+    def refine_dinv(nb, m, dtype, seed):
+        g_ = torch.Generator(device=dev).manual_seed(seed)
+        u = torch.rand(nb, m, generator=g_, device=dev, dtype=torch.float64)
+        active = torch.rand(nb, m, generator=g_, device=dev) < 0.5
+        tiny, big = 10.0 ** (-16.0 + 6.0 * u), 0.5 + u
+        s_ = torch.where(active, tiny, big)
+        z_ = torch.where(active, big, tiny)
+        d_ = z_.clamp(min=1e-10) / s_.clamp(min=1e-10)
+        return (1.0 / d_).to(dtype)
+
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        dinv_ = refine_dinv(B, NINEQ, dtype, 150)
+        rhs_ = vecs(B, NINEQ, dtype, 151, k=1)[0] - 1.0
+        for shared in (False, True):
+            R_ = spd(1 if shared else B, NINEQ, dtype, 152)
+            for key, fn, plain in (
+                    ("factor_inv_solve", kernels.factor_inv,
+                     kernels.factor_inv_plain),
+                    ("chol_solve", kernels.chol, kernels.chol_plain)):
+                got = fn(R_, dinv_, rhs_)
+                torch.cuda.synchronize()
+                compare(f"{key} {dtype} B={B} m={NINEQ} shared={shared} on "
+                        "refinement's clamped diagonal (1/d from "
+                        f"{float(dinv_.min()):.1e} to "
+                        f"{float(dinv_.max()):.1e})", got,
+                        plain(R_, dinv_, rhs_), tol)
+    del R_, dinv_, rhs_, got
 
     # ---- phase 3: forward at full width through the kernels ----
     Q, p, G, h = make_problem(B, NZ, NINEQ, seed=0)
@@ -1690,6 +1730,327 @@ def main():
                                 d=med6d),
         card_vs_cpu=dict(cvc6, optnet=cvc6d), against_f64_default=def6)
 
+    # ---- phase 9d (path 7): refinement, escalation, the CPU oracle ----
+    # Refinement steps: the port's _refine returns the number it took, and
+    # the solve discards it; a wrapper records it.
+    from qpth_tpu_torch.core import pdipm as port_pdipm
+
+    refine_steps = []
+    refine_orig = port_pdipm._refine
+
+    def refine_counted(*args, **kw):
+        out = refine_orig(*args, **kw)
+        refine_steps.append(out[3])
+        return out
+
+    port_pdipm._refine = refine_counted
+
+    def lane_rel(a, b):
+        """Per-lane relative error ||a - b|| / ||b|| over rows (flattened
+        beyond the batch dim)."""
+        a, b = a.double().flatten(1), b.double().flatten(1)
+        return (a - b).norm(dim=1) / b.norm(dim=1).clamp_min(1e-300)
+
+    def quantiles(e):
+        return dict(median=float(e.median()), p90=float(e.quantile(0.9)),
+                    max=float(e.max()))
+
+    cfg7 = qt.SolverConfig(check_Q_spd=False, eps=1e-8)
+    cfg7c = dataclasses.replace(cfg7, use_pallas="blocked")
+    # The yardstick: the card's float64 solve of the float32-rounded data,
+    # from the IPM loop alone (refine_steps=0: eps = 1e-9 would engage the
+    # dial, the code under test).
+    cfg7_64 = qt.SolverConfig(check_Q_spd=False, eps=1e-9, refine_steps=0)
+
+    def refined_case(tag, arrs32, config, base_sol, base_config):
+        """Path 7 (a)-(c): one refined forward and one forward+backward
+        through the entry points, counts and refinement steps read; gates:
+        float64 outputs; under the dial (12 steps, early exit) the median
+        per-lane z error <= 1e-8 against the yardstick and >= 100x below
+        the unrefined solve's, and the p90 >= 10x below the unrefined
+        p90; with the same budget and no early exit (refine_steps=12) the
+        median and the p90 <= 1e-8; float32 gradients, finite on every
+        lane the refined forward converged (score <= 1e-6) and on all but
+        B/200 lanes, within the f32 gradient gate (median per-lane error
+        against float64 <= 5e-2), printed beside the unrefined forward's.
+        The dial's p90 is not held to 1e-8 and its max is printed: its
+        early exit stops once a step does not halve the batch's max score,
+        so the slowest lanes (at the float32 plateau the loop can keep an
+        iterate 1e-4 off) stop the steps for all. The JAX package on the
+        kernel path that the port mirrors does the same at this width: 2
+        steps, p90 9.6e-6, 42x below its unrefined p90, on the CPU
+        (benchmarks/refine_witness.py; ROADMAP.md §3)."""
+        refine_steps.clear()
+        sol_r, l_r, its_r = drive(f"{tag} forward, eps=1e-8", arrs32, config)
+        steps_r = refine_steps[-1]
+        check(all(getattr(sol_r, k).dtype == torch.float64
+                  for k in ("z", "nu", "lam", "s"))
+              and sol_r.stats.best_resids.dtype == torch.float64,
+              f"{tag}: the refined outputs are not float64")
+        y64 = qt.solve_qp_full(*[a.double() for a in arrs32],
+                               config=cfg7_64)
+        print(f"# {tag}: yardstick (float64, refine_steps=0) iterations "
+              f"{int(y64.stats.iterations)}, score max "
+              f"{float(y64.stats.best_resids.max()):.3e} median "
+              f"{float(y64.stats.best_resids.median()):.3e}")
+        e_r = quantiles(lane_rel(sol_r.z, y64.z))
+        e_b = quantiles(lane_rel(base_sol.z, y64.z))
+        refine_steps.clear()
+        sol_f = qt.solve_qp_full(*arrs32, config=dataclasses.replace(
+            config, refine_steps=12))
+        e_f = quantiles(lane_rel(sol_f.z, y64.z))
+        del sol_f
+        sc = {k: dict(max=float(s_.stats.best_resids.max()),
+                      median=float(s_.stats.best_resids.median()))
+              for k, s_ in (("unrefined", base_sol), ("refined", sol_r))}
+        print(f"# {tag}: refinement steps {steps_r}; score max / median "
+              f"unrefined {sc['unrefined']['max']:.3e} / "
+              f"{sc['unrefined']['median']:.3e}, refined "
+              f"{sc['refined']['max']:.3e} / {sc['refined']['median']:.3e}; "
+              f"per-lane z error against the f64 solve of the f32-rounded "
+              f"data over {B} lanes: refined median {e_r['median']:.3e} p90 "
+              f"{e_r['p90']:.3e} max {e_r['max']:.3e} (max not gated), "
+              f"refine_steps=12 (no early exit) median {e_f['median']:.3e} "
+              f"p90 {e_f['p90']:.3e} max {e_f['max']:.3e} (max not gated), "
+              f"unrefined median {e_b['median']:.3e} p90 {e_b['p90']:.3e}")
+        check(e_r["median"] <= 1e-8,
+              f"{tag}: refined z error median {e_r['median']:.3e} > 1e-8")
+        check(e_f["median"] <= 1e-8 and e_f["p90"] <= 1e-8,
+              f"{tag}: refine_steps=12 z error median {e_f['median']:.3e} / "
+              f"p90 {e_f['p90']:.3e} > 1e-8")
+        check(e_b["median"] >= 100.0 * e_r["median"],
+              f"{tag}: refinement gained less than 100x")
+        check(e_b["p90"] >= 10.0 * e_r["p90"],
+              f"{tag}: the dial's p90 gained less than 10x")
+        kernels.reset_launches()
+        _, g_r = grads_of(arrs32, config, dev)
+        torch.cuda.synchronize()
+        l_fb = dict(kernels.LAUNCHES)
+        print(f"# {tag}: forward+backward launches "
+              f"{ {k: v for k, v in l_fb.items() if v} }")
+        # Every parameter is batched here: a lane's gradient is its own. A
+        # lane the forward left unconverged (path 1's float32 limit: a few
+        # lanes' loop ends at a score of 0.1-0.5, and the early exit leaves
+        # others mid-way with a negative slack) may give a non-finite one.
+        lane_bad = torch.zeros(B, dtype=torch.bool, device=dev)
+        for g_ in g_r:
+            lane_bad |= ~torch.isfinite(g_).flatten(1).all(dim=1)
+        conv = sol_r.stats.best_resids <= 1e-6
+        n_bad = int(lane_bad.sum())
+        # Refinement takes full steps (no fraction-to-boundary rule, as in
+        # the JAX package): a lane whose float32 start has the wrong active
+        # set can end with negative slacks that its score, |sum(s lam)|,
+        # does not see (benchmarks/refine_witness.py).
+        min_s = sol_r.s.min(dim=1).values
+        neg = min_s < -1e-6
+        print(f"# {tag}: lanes with a non-finite gradient {n_bad} "
+              f"{torch.nonzero(lane_bad).flatten()[:8].tolist()} (refined "
+              f"scores {sol_r.stats.best_resids[lane_bad][:8].tolist()}, "
+              f"smallest slacks {min_s[lane_bad][:8].tolist()}); lanes "
+              f"converged (score <= 1e-6) {int(conv.sum())} of {B}; lanes "
+              f"with a slack below -1e-6 {int(neg.sum())}")
+        check(all(g_.dtype == torch.float32 for g_ in g_r)
+              and not bool((lane_bad & conv).any())
+              and n_bad <= DUAL_LANES_OFF,
+              f"{tag}: gradients not float32, or not finite on a converged "
+              f"lane, or on more than {DUAL_LANES_OFF} lanes")
+        _, g_b = grads_of(arrs32, base_config, dev)
+        n = N_F64_CARD
+        _, g_64 = grads_of([a[:n].double() for a in arrs32], cfg64, dev)
+        ge = {}
+        for k, g_ in (("refined", g_r), ("unrefined", g_b)):
+            ge[k] = {nm: float(lane_rel(g_[i][:n], g_64[i]).nanmedian())
+                     for i, nm in enumerate("QpGhAb"[:len(g_)])}
+        print(f"# {tag}: gradients, per-lane median rel err against f64 "
+              f"over {n} lanes: refined forward "
+              + ", ".join(f"{k} {v:.3e}" for k, v in ge["refined"].items())
+              + "; unrefined forward "
+              + ", ".join(f"{k} {v:.3e}" for k, v in ge["unrefined"].items()))
+        check(all(v <= 5e-2 for v in ge["refined"].values()),
+              f"{tag}: f32 gradients after the refined forward")
+        return dict(iterations=its_r, refine_steps=steps_r, scores=sc,
+                    z_err=e_r, z_err_fixed12=e_f, z_err_unrefined=e_b,
+                    grad_err=ge, grad_nonfinite_lanes=n_bad), \
+            dict(forward=l_r, forward_backward=l_fb)
+
+    facts7, launches7 = {}, {}
+    # (a) the bench workload, "auto": kernel A with rhs once per step.
+    facts7["a"], launches7["a"] = refined_case(
+        "phase 9d (path 7a): bench workload f32", f32, cfg7, sol, cfg)
+    check(launches7["a"]["forward"]["factor_inv_solve"]
+          == facts7["a"]["refine_steps"] > 0,
+          "path 7a: kernel A with rhs did not run once per refinement step")
+    # (b) path 1's equality data.
+    facts7["b"], launches7["b"] = refined_case(
+        "phase 9d (path 7b): path 1's data f32", eq32, cfg7, sol1, cfg)
+    check(launches7["b"]["forward"]["factor_inv_solve"]
+          == facts7["b"]["refine_steps"] > 0,
+          "path 7b: kernel A with rhs did not run once per refinement step")
+    # (c) "blocked": kernel C with rhs once per step beside the loop's.
+    facts7["c"], launches7["c"] = refined_case(
+        "phase 9d (path 7c): blocked f32", f32, cfg7c, sol6, cfg6)
+    # The loop's kernel C with rhs: the init's and one per stepped
+    # iteration (kernel D once per stepped iteration and correction).
+    l7c = launches7["c"]["forward"]
+    check(l7c["chol_solve"] == 1 + l7c["cho_solve"] // (1 + cfg7c.n_correctors)
+          + facts7["c"]["refine_steps"] and facts7["c"]["refine_steps"] > 0,
+          "path 7c: kernel C with rhs did not run once per refinement step")
+
+    # (d) float64 at eps = 1e-9 with auto refinement: card against CPU.
+    cfg7d = qt.SolverConfig(check_Q_spd=False, eps=1e-9)
+    steps7d = {}
+    for device in (dev, "cpu"):
+        refine_steps.clear()
+        qt.solve_qp_full(*tensors((Q, p, G, h), torch.float64, device,
+                                  N_F64_CPU), config=cfg7d, device=device)
+        steps7d[str(device)] = refine_steps[-1]
+    facts7["d"] = dict(card_vs_cpu=card_vs_cpu(
+        "phase 9d (path 7d) f64 eps=1e-9 refined", (Q, p, G, h), cfg7d,
+        "QpGh"), refine_steps=steps7d)
+    print(f"# phase 9d (path 7d): refinement steps card / CPU "
+          f"{steps7d[str(dev)]} / {steps7d['cpu']}")
+    check(steps7d[str(dev)] == steps7d["cpu"] > 0,
+          "path 7d: refinement steps differ between card and CPU")
+
+    # (e) escalation: 32 lanes of the bench workload get the rotated-
+    # spectrum cond ~1e8 Q of tests/test_pdipm.py at n = 100. Refinement
+    # runs its budget of 12 steps without the early exit: the early exit
+    # stops once a step does not halve the batch's max score, which the
+    # planted lanes never let happen, so under the dial (eps = 1e-8 alone)
+    # the healthy lanes stop after one step and many stay above
+    # escalate_tol (counted below, not escalated: each escalated lane costs
+    # a host solve).
+    npr = np.random.RandomState(7)
+    U, _ = np.linalg.qr(npr.randn(NZ, NZ))
+    Qc = (U * np.logspace(0, -8, NZ)) @ U.T
+    Qc = 0.5 * (Qc + Qc.T) + 1e-9 * np.eye(NZ)
+    planted = np.arange(32) * (B // 32)
+    Qe = Q.copy()
+    Qe[planted] = Qc
+    e32 = tensors((Qe, p, G, h), torch.float32, dev)
+    del Qe
+    cfg7e = qt.SolverConfig(check_Q_spd=False, eps=1e-8, verbose=-1,
+                            refine_steps=12)
+    cfg7e_esc = dataclasses.replace(cfg7e, escalate="oracle")
+    refine_steps.clear()
+    dial_e, _, _ = drive("phase 9d (path 7e): 32 cond ~1e8 lanes, eps=1e-8 "
+                         "(the dial, early exit), no escalation", e32,
+                         dataclasses.replace(cfg7e, refine_steps="auto"))
+    dial_above = int((dial_e.stats.best_resids > cfg7e.escalate_tol).sum())
+    print(f"# phase 9d (path 7e): under the dial refinement took "
+          f"{refine_steps[-1]} step(s) and left {dial_above} of {B} lanes "
+          f"above escalate_tol {cfg7e.escalate_tol:g}")
+    del dial_e
+    t0 = time.perf_counter()
+    base_e, _, _ = drive("phase 9d (path 7e): 32 cond ~1e8 lanes, eps=1e-8, "
+                         "no escalation", e32, cfg7e)
+    t_base = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sol_e, l7e, _ = drive("phase 9d (path 7e): the same with escalate="
+                          "'oracle'", e32, cfg7e_esc)
+    t_esc = time.perf_counter() - t0
+    esc = sol_e.stats.escalated
+    n_esc = int(esc.sum())
+    keep = ~esc
+    check(bool(torch.equal(esc, base_e.stats.best_resids
+                           > cfg7e.escalate_tol)),
+          "path 7e: the escalated lanes are not those above escalate_tol")
+    n_pl = int(esc[torch.as_tensor(planted, device=dev)].sum())
+    check(all(bool(torch.equal(getattr(sol_e, k)[keep],
+                               getattr(base_e, k)[keep]))
+              for k in ("z", "nu", "lam", "s"))
+          and bool(torch.equal(sol_e.stats.best_resids[keep],
+                               base_e.stats.best_resids[keep])),
+          "path 7e: a lane that was not escalated changed")
+    # The planted lanes' score recomputed in float64 from hi + lo against
+    # the float32-rounded data.
+    pl = torch.as_tensor(planted, device=dev)
+    zq, lq, sq = (getattr(sol_e, k)[pl].double()
+                  + getattr(sol_e.lo, k)[pl].double()
+                  for k in ("z", "lam", "s"))
+    Qp, pp, Gp, hp = (a[pl].double() for a in e32)
+    rx = (torch.einsum("bij,bj->bi", Qp, zq) + pp
+          + torch.einsum("bji,bj->bi", Gp, lq))
+    rz = torch.einsum("bij,bj->bi", Gp, zq) + sq - hp
+    score_pl = rx.norm(dim=1) + rz.norm(dim=1) + (sq * lq).sum(1).abs()
+    med_pl = float(score_pl.median())
+    base_pl = base_e.stats.best_resids[pl]
+    print(f"# phase 9d (path 7e): {n_esc} of {B} lanes escalated, {n_pl} of "
+          f"the 32 planted; planted lanes' score before "
+          f"{float(base_pl.median()):.3e} (median) / "
+          f"{float(base_pl.max()):.3e} (max), after, recomputed in f64 from "
+          f"hi + lo: {med_pl:.3e} / {float(score_pl.max()):.3e}; host "
+          f"seconds per escalated lane {(t_esc - t_base) / max(n_esc, 1):.4f}"
+          f" (solve {t_esc:.3f} s against {t_base:.3f} s)")
+    check(med_pl <= 1e-4, f"path 7e: planted lanes' median score "
+          f"{med_pl:.3e} > 1e-4")
+    facts7["e"] = dict(escalated=n_esc, planted=len(planted),
+                       planted_escalated=n_pl, dial_lanes_above=dial_above,
+                       planted_score_before=dict(
+                           median=float(base_pl.median()),
+                           max=float(base_pl.max())),
+                       planted_score_after=dict(
+                           median=med_pl, max=float(score_pl.max())),
+                       host_s_per_lane=(t_esc - t_base) / max(n_esc, 1))
+    launches7["e"] = l7e
+    del base_e, sol_e, zq, lq, sq, Qp, pp, Gp, hp, rx, rz
+
+    # (f) QPSolvers.CPU_ORACLE at B = 64: the whole batch on the host; the
+    # backward builds the factors and runs kernel A.
+    o64 = tensors((Q, p, G, h), torch.float64, dev, 64)
+    cfg7f = qt.SolverConfig(check_Q_spd=False,
+                            solver=qt.QPSolvers.CPU_ORACLE)
+    t0 = time.perf_counter()
+    sol_o, l7f, _ = drive("phase 9d (path 7f): CPU_ORACLE f64 B=64", o64,
+                          cfg7f)
+    t_o = time.perf_counter() - t0
+    ref_o = qt.solve_qp_full(*o64, config=cfg_d64_e9)
+    e_o = rel(sol_o.z, ref_o.z)
+    kernels.reset_launches()
+    _, g_o = grads_of(o64, cfg7f, dev)
+    torch.cuda.synchronize()
+    l7f_fb = dict(kernels.LAUNCHES)
+    print(f"# phase 9d (path 7f): CPU_ORACLE z against the card's f64 solve "
+          f"{e_o:.3e} ({t_o:.2f} s for 64 lanes on the host); backward "
+          f"launches { {k: v for k, v in l7f_fb.items() if v} }")
+    check(sol_o.z.device.type == "cuda" and e_o <= 1e-7
+          and not any(l7f.values()),
+          f"path 7f: CPU_ORACLE z {e_o:.3e} > 1e-7, or it launched a kernel")
+    check(l7f_fb["factor_inv_solve"] == 1
+          and all(bool(torch.isfinite(g_).all()) for g_ in g_o),
+          "path 7f: the backward did not run kernel A to finite gradients")
+    facts7["f"] = dict(z_err=e_o, host_s=t_o)
+    launches7["f"] = dict(forward=l7f, forward_backward=l7f_fb)
+    del o64, sol_o, ref_o, g_o
+
+    # (g) KKTSolver.FULL and IR (LU of the saddle system, library calls) on
+    # path 1's data in float64, card against CPU; then one verbose=1 solve.
+    facts7["g"] = {}
+    for ks in (qt.KKTSolver.FULL, qt.KKTSolver.IR):
+        cfg_k = qt.SolverConfig(check_Q_spd=False, kkt_solver=ks, eps=1e-9,
+                                refine_steps=0)
+        facts7["g"][ks.name] = card_vs_cpu(
+            f"phase 9d (path 7g) {ks.name} f64 path 1's data", eq_np, cfg_k,
+            "QpGhAb", same_iterations=False)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        sol_v = qt.solve_qp_full(*tensors((Q, p, G, h), torch.float32, dev,
+                                          8),
+                                 config=qt.SolverConfig(check_Q_spd=False,
+                                                        verbose=1))
+        torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        print(f"#   {ln}")
+    print(f"# phase 9d (path 7g): verbose=1 at B=8 printed {len(lines)} "
+          f"lines over {int(sol_v.stats.iterations)} iterations")
+    check(len(lines) == int(sol_v.stats.iterations) > 0
+          and all(ln.startswith("iter: ") for ln in lines),
+          "path 7g: verbose=1 did not print one line per iteration")
+    port_pdipm._refine = refine_orig
+    path_launches["path7_refine"] = launches7
+    path_facts["path7_refine"] = facts7
+
     # ---- phase 10: timings (CUDA events, median of REPS after warm-up) ----
     def cuda_ms(fn, reps=REPS, warm=3):
         for _ in range(warm):
@@ -2112,6 +2473,20 @@ def main():
                 for k in p6l["c"] for w in ("forward", "forward_backward")})
         rows.append(row)
     check(len(rows) == 15, f"the kernels line has {len(rows)} rows, not 15")
+    # Path 7's launches of the kernels that refinement runs: kernel A with
+    # rhs (row 3) once per step under "auto", kernel C with rhs (row 9)
+    # under "blocked", and kernel D (row 15) beside it.
+    p7l = path_launches["path7_refine"]
+    for r in rows:
+        key = {"qpth_tpu/ops/pallas/lanes.py:540": "factor_inv_solve",
+               "qpth_tpu/ops/pallas/lanes.py:258": "chol_solve",
+               "qpth_tpu/ops/pallas/cholesky.py:316": "cho_solve"}.get(
+                   r["replaces"])
+        if key:
+            r["path7_launches"] = {
+                c: {w: p7l[c][w][key] for w in ("forward",
+                                                "forward_backward")}
+                for c in ("a", "b", "c")}
 
     spread = {}
 
@@ -2230,6 +2605,43 @@ def main():
                 lambda: grads_of(d64, cfg6, dev)))
         del d64
     paths_ms["path6_blocked"] = p6
+
+    # Path 7: refined (eps = 1e-8) forward and forward+backward beside the
+    # unrefined ones of this run, and (e) with and without escalation.
+    def timed(tag, fn, its_=None):
+        ms = report(tag, host_ms(fn), its_)
+        lo, hi = spread["last"]
+        return dict(median=ms, min=lo, max=hi)
+
+    paths_ms["path7_refine"] = dict(
+        a_forward_ms=timed("path7 (a) refined forward", lambda: (
+            qt.solve_qp_full(*f32, config=cfg7)), facts7["a"]["iterations"]),
+        a_forward_backward_ms=timed("path7 (a) refined forward+backward",
+                                    lambda: grads_of(f32, cfg7, dev)),
+        a_fixed12_forward_ms=timed(
+            "path7 (a) refine_steps=12 forward", lambda: qt.solve_qp_full(
+                *f32, config=dataclasses.replace(cfg7, refine_steps=12))),
+        a_unrefined_forward_ms=timed("path7 (a) unrefined forward", lambda: (
+            qt.solve_qp_full(*f32, config=cfg)), its),
+        a_unrefined_forward_backward_ms=timed(
+            "path7 (a) unrefined forward+backward",
+            lambda: grads_of(f32, cfg, dev)),
+        c_forward_ms=timed("path7 (c) blocked refined forward", lambda: (
+            qt.solve_qp_full(*f32, config=cfg7c)), facts7["c"]["iterations"]),
+        c_forward_backward_ms=timed(
+            "path7 (c) blocked refined forward+backward",
+            lambda: grads_of(f32, cfg7c, dev)),
+        c_unrefined_forward_ms=timed("path7 (c) blocked unrefined forward",
+                                     lambda: qt.solve_qp_full(
+                                         *f32, config=cfg6), its6),
+        c_unrefined_forward_backward_ms=timed(
+            "path7 (c) blocked unrefined forward+backward",
+            lambda: grads_of(f32, cfg6, dev)),
+        e_forward_ms=timed("path7 (e) forward, no escalation", lambda: (
+            qt.solve_qp_full(*e32, config=cfg7e))),
+        e_escalated_forward_ms=timed("path7 (e) forward with escalation",
+                                     lambda: qt.solve_qp_full(
+                                         *e32, config=cfg7e_esc)))
 
     # Device time of one forward+backward by kernel (torch.profiler), and
     # the share of the wall time the device was idle: the neq = 0 main

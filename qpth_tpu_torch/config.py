@@ -27,7 +27,7 @@ import torch
 
 class KKTSolver(enum.Enum):
     """Which KKT linear-system strategy the IPM uses (see the JAX
-    package). Only ``CHOL_PARTIAL`` is ported so far."""
+    package)."""
 
     #: Pre-factor once, re-factor only the iteration-varying Schur block.
     CHOL_PARTIAL = "chol_partial"
@@ -106,7 +106,8 @@ class SolverConfig:
     equilibrate: bool | str = "auto"
     #: Ruiz iterations.
     ruiz_iters: int = 4
-    #: Refinement complementarity clamp; None = dtype-aware auto.
+    #: Refinement complementarity clamp; None = 1e-10 (what the JAX
+    #: package's float64-residual refinement takes at every working dtype).
     refine_clamp: float | None = None
     #: Gondzio centrality correctors per iteration.
     n_correctors: int = 0
@@ -151,13 +152,16 @@ class SolveStats(NamedTuple):
     mu: torch.Tensor
     #: Per-lane convergence flag: best_resids < eps.
     converged: torch.Tensor
-    #: Per-lane escalation flag (escalation is not ported: always None).
+    #: Per-lane escalation flag (``SolverConfig.escalate``): True where the
+    #: lane's score exceeded ``escalate_tol`` and the CPU oracle was tried;
+    #: None without escalation.
     escalated: Optional[torch.Tensor] = None
 
 
 class QPSolutionLow(NamedTuple):
-    """Low words of a double-word-refined solution (refinement is not
-    ported: never produced yet)."""
+    """Low words of a double-word solution: where the CPU oracle re-solved
+    a lane (``SolverConfig.escalate``), hi + lo in float64 is its float64
+    answer, which one working-dtype word cannot hold; zero elsewhere."""
 
     z: torch.Tensor
     nu: torch.Tensor
@@ -177,5 +181,5 @@ class QPSolution(NamedTuple):
     #: Slacks s = h - Gz (B, nineq).
     s: torch.Tensor
     stats: SolveStats
-    #: Double-word low words (refinement only); None otherwise.
+    #: Double-word low words (escalation only); None otherwise.
     lo: Optional[QPSolutionLow] = None

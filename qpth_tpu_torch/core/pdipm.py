@@ -32,9 +32,19 @@ margin 0; equilibration: the iterates live in ``factors.scaling``
 coordinates, the scoring and the init shift in ``factors.sem_scaling``
 coordinates, and the result and stats come back in original coordinates.
 
+After the loop, as in the JAX solver: mixed-precision refinement
+(``SolverConfig.refine_steps``, or the eps dial: :func:`_refine`, float64
+residuals with working-dtype solves on the backend's kernels, the result in
+float64), then escalation of the lanes still above ``escalate_tol`` to the
+float64 CPU oracle (:func:`_escalate_oracle`). ``KKTSolver.FULL`` and
+``KKTSolver.IR`` replace the partial-Cholesky algebra by the full saddle
+system (``ops/kkt.py``); ``verbose >= 1`` prints one line per iteration.
+
 The JAX loop is a ``lax.while_loop`` on the device. Here the loop is a
 Python ``for`` with one host read of ``done`` per iteration, as upstream
-qpth's loop does it; everything else stays on the device.
+qpth's loop does it (the per-iteration print rides in the same read);
+everything else stays on the device. Refinement's early exit likewise reads
+the host once per step.
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ import warnings
 import torch
 
 from .. import scaling as scaling_mod
-from ..config import (KKTSolver, QPSolution, QPSolvers, SolverConfig,
+from ..config import (KKTSolver, QPSolution, QPSolutionLow, SolverConfig,
                       SolveStats, resolve_refine_steps)
 from ..ops import kkt as kkt_ops
 from ..ops.linalg import bmv, btmv
@@ -61,31 +71,206 @@ def resolve_resid_every(config: SolverConfig, dtype) -> int:
     return 1 if _is_f64(dtype) else 7
 
 
-def check_config(config: SolverConfig, dtype) -> None:
-    """Raise ``NotImplementedError`` for configurations whose branch is
-    not ported yet (each names its ROADMAP item)."""
-    if config.kkt_solver != KKTSolver.CHOL_PARTIAL:
-        raise NotImplementedError(
-            f"kkt_solver={config.kkt_solver} — ROADMAP.md §1 item 9")
-    if config.solver == QPSolvers.CPU_ORACLE:
-        raise NotImplementedError(
-            "solver=QPSolvers.CPU_ORACLE — ROADMAP.md §1 item 12")
-    if resolve_refine_steps(config, dtype)[0] > 0:
-        raise NotImplementedError(
-            "refine_steps > 0 (mixed-precision refinement) — "
-            "ROADMAP.md §1 item 11")
-    if config.escalate is not None:
-        raise NotImplementedError(
-            "escalate (oracle escalation) — ROADMAP.md §1 item 12")
-    if config.verbose >= 1:
-        raise NotImplementedError(
-            "verbose >= 1 (per-iteration prints) — ROADMAP.md §1 item 14")
-
-
 def _step_to_boundary(v, dv):
     """Per-lane max step with v + a dv >= 0 (NaN propagates)."""
     inf = torch.full_like(v, float("inf"))
     return torch.where(dv < 0, -v / dv, inf).amin(dim=-1)
+
+
+def _refine(best, Q, p, G, h, A, b, nineq, kkt_factor_solve,
+            config: SolverConfig, maps=None, steps: int = 0,
+            early_exit: bool = False):
+    """Mixed-precision refinement (``SolverConfig.refine_steps``): full
+    Newton steps toward mu = 0 with float64 residuals and working-dtype
+    solves (``kkt_factor_solve``: the backend's factor with its first solve,
+    kernel A or kernel C). The float32 plateau comes from evaluating the
+    Newton right-hand side in float32; recomputing the residuals in float64
+    restores true corrections while cond(KKT) < 1/eps_f32, and the iterate
+    is accumulated, and returned, in float64.
+
+    ``best``: the loop's best (x, s, z, y) in iterate coordinates.
+    ``maps``: (m_x, m_s, m_z, m_y, w_rx, w_rz, w_ry), the exact pow2 maps
+    from iterate to original coordinates and from original residuals to
+    iterate-coordinate ones: the residuals and scores are those of the
+    original problem, the solves those of the scaled one. The complementarity
+    diagonal is clamped at ``refine_clamp`` (1e-10 by default) and no
+    fraction-to-boundary rule applies; per-lane best-score tracking keeps the
+    entry iterate wherever a step degrades a lane.
+
+    With ``early_exit`` (the eps dial) the steps stop once one does not halve
+    the batch's max score, one host read per step; the test reduces over
+    the whole batch, as the JAX package's does. Returns ((x, s, z, y),
+    score, mu, steps): the point in iterate coordinates and the score and mu
+    of the original problem, all float64, and the number of steps taken."""
+    f64 = torch.float64
+    neq = A.shape[-2] if A is not None else 0
+    wd = p.dtype
+    Q64, G64, p64, h64 = (v.to(f64) for v in (Q, G, p, h))
+    A64 = A.to(f64) if neq > 0 else None
+    b64 = b.to(f64) if neq > 0 else None
+    if maps is not None:
+        m_x, m_s, m_z, m_y, w_rx, w_rz, w_ry = maps
+        m_x, m_s, m_z = (v.to(f64) for v in (m_x, m_s, m_z))
+        m_y = m_y.to(f64) if m_y is not None else None
+
+    def norm(v):
+        return torch.linalg.vector_norm(v, dim=-1)
+
+    def score64(x, s, z, y):
+        if maps is not None:
+            x, s, z = x * m_x, s * m_s, z * m_z
+            if neq > 0:
+                y = y * m_y
+        rx = bmv(Q64, x) + p64 + btmv(G64, z)
+        ry = None
+        pri = 0.0
+        if neq > 0:
+            rx = rx + btmv(A64, y)
+            ry = bmv(A64, x) - b64
+            pri = norm(ry)
+        rz = bmv(G64, x) + s - h64
+        mu = torch.abs((s * z).sum(dim=-1) / nineq)
+        return rx, rz, ry, mu, pri + norm(rz) + norm(rx) + nineq * mu
+
+    x, s, z, y = (v.to(f64) for v in best)
+    _, _, _, mu_b, score_b = score64(x, s, z, y)
+    bx, bs, bz, by = x, s, z, y
+    c = config.refine_clamp if config.refine_clamp is not None else 1e-10
+
+    def step_once(x, s, z, y):
+        rx, rz, ry, _, _ = score64(x, s, z, y)
+        s_hat = torch.clamp(s, min=c)
+        d = (torch.clamp(z, min=c) / s_hat).to(wd)
+        # (s z) / s_hat, not z: the complementarity row of the clamped
+        # system.
+        rs_eff = (z * (s / s_hat)).to(wd)
+        if maps is not None:
+            rx, rz = rx * w_rx, rz * w_rz
+            ry = ry * w_ry if neq > 0 else None
+        _, dx, ds, dz, dy = kkt_factor_solve(
+            d, rx.to(wd), rs_eff, rz.to(wd),
+            ry.to(wd) if neq > 0 else None)
+        lane_bad = (torch.isnan(dx).any(-1) | torch.isnan(ds).any(-1)
+                    | torch.isnan(dz).any(-1))
+        if neq > 0:
+            lane_bad = lane_bad | torch.isnan(dy).any(-1)
+        msk = lane_bad.unsqueeze(-1)
+        x = x + torch.where(msk, 0.0, dx).to(f64)
+        s = s + torch.where(msk, 0.0, ds).to(f64)
+        z = z + torch.where(msk, 0.0, dz).to(f64)
+        if neq > 0:
+            y = y + torch.where(msk, 0.0, dy).to(f64)
+        _, _, _, mu_n, score_n = score64(x, s, z, y)
+        return x, s, z, y, mu_n, score_n
+
+    k, prev_m = 0, float("inf")
+    cur_m = float(score_b.amax()) if early_exit else 0.0
+    while k < steps and (not early_exit or k == 0 or cur_m < 0.5 * prev_m):
+        x, s, z, y, mu_n, score_n = step_once(x, s, z, y)
+        take = score_n < score_b
+        t = take.unsqueeze(-1)
+        bx, bs, bz = (torch.where(t, v, bv)
+                      for v, bv in ((x, bx), (s, bs), (z, bz)))
+        if neq > 0:
+            by = torch.where(t, y, by)
+        score_b = torch.minimum(score_n, score_b)
+        mu_b = torch.where(take, mu_n, mu_b)
+        if early_exit:
+            prev_m, cur_m = cur_m, float(score_n.amax())
+        k += 1
+    return (bx, bs, bz, by), score_b, mu_b, k
+
+
+def _escalate_oracle(esc, x, s, z, y, stats: SolveStats, Q, p, G, h, A, b,
+                     config: SolverConfig):
+    """Escalate conditioning-limited lanes to the float64 CPU oracle
+    (``SolverConfig.escalate="oracle"``): the lanes ``esc`` (original-
+    coordinate score above ``escalate_tol``) are found with one host read,
+    only their operands go to the host (a shared matrix once), and each is
+    solved by ``solvers/oracle.py::solve_qp_np``. The answers merge back on
+    the device as hi words in the working dtype with their low words in
+    ``lo`` (one working-dtype word cannot hold the float64 answer), with the
+    exact float64 score (rounded to the working dtype) in ``best_resids``.
+    ``stats.escalated`` is the attempt mask; a lane the oracle also fails on
+    keeps its device iterate. Returns (x, s, z, y, lo, stats)."""
+    import numpy as np
+
+    from ..solvers.oracle import solve_qp_np
+
+    neq = A.shape[-2] if A is not None else 0
+    m = G.shape[-2]
+    wd = p.dtype
+    np_dt = np.float64 if _is_f64(wd) else np.float32
+    lo = QPSolutionLow(*(torch.zeros(v.shape, dtype=wd, device=v.device)
+                         for v in (x, y, z, s)))
+    stats = stats._replace(escalated=esc)
+    idx = torch.nonzero(esc).flatten()          # the one host read
+    if idx.numel() == 0:
+        return x, s, z, y, lo, stats
+
+    def host(M):
+        """Escalated lanes' rows of M on the host; a shared matrix once."""
+        return (M if M.shape[0] == 1 else M[idx]).cpu().numpy()
+
+    Qh, Gh, ph, hh = host(Q), host(G), host(p), host(h)
+    Ah, bh = (host(A), host(b)) if neq > 0 else (None, None)
+    ok, vals, score, mu_o = [], {k: [] for k in "xszy"}, [], []
+    for j in range(idx.numel()):
+        Qi = (Qh[j] if Qh.shape[0] > 1 else Qh[0]).astype(np.float64)
+        Gi = (Gh[j] if Gh.shape[0] > 1 else Gh[0]).astype(np.float64)
+        Ai = ((Ah[j] if Ah.shape[0] > 1 else Ah[0]).astype(np.float64)
+              if Ah is not None else None)
+        bi = bh[j].astype(np.float64) if bh is not None else None
+        pi, hi = ph[j].astype(np.float64), hh[j].astype(np.float64)
+        try:
+            _, xi, nui, lami, si = solve_qp_np(Qi, pi, Gi, hi, Ai, bi)
+        except Exception:
+            continue
+        if not np.isfinite(xi).all():
+            continue
+        yi = nui if (neq > 0 and nui is not None) else np.zeros(neq)
+        for k, v in (("x", xi), ("s", si), ("z", lami), ("y", yi)):
+            vals[k].append(v)
+        # The exact float64 score of the oracle's answer (the merged words
+        # are its rounding; scoring those would report the representation
+        # error, not the solve's).
+        rx = Qi @ xi + pi + Gi.T @ lami
+        rz = Gi @ xi + si - hi
+        sc = np.linalg.norm(rz) + np.linalg.norm(rx) + abs(si @ lami)
+        if Ai is not None:
+            sc = (np.linalg.norm(rz) + np.linalg.norm(rx + Ai.T @ yi)
+                  + np.linalg.norm(Ai @ xi - bi) + abs(si @ lami))
+        score.append(sc)
+        mu_o.append(abs(si @ lami) / m)
+        ok.append(j)
+    if not ok:
+        return x, s, z, y, lo, stats
+    rows = idx[torch.as_tensor(ok, device=idx.device)]
+
+    def merge(cur, new):
+        out = cur.clone()
+        out[rows] = torch.as_tensor(np.asarray(new)).to(cur.device, cur.dtype)
+        return out
+
+    hi_lo = {}
+    for k, v in vals.items():
+        v = np.stack(v)
+        hw = v.astype(np_dt)
+        hi_lo[k] = (hw, (v - hw.astype(np.float64)).astype(np_dt))
+    x, s, z = (merge(cur, hi_lo[k][0]) for cur, k in ((x, "x"), (s, "s"),
+                                                       (z, "z")))
+    lo = lo._replace(z=merge(lo.z, hi_lo["x"][1]),
+                     s=merge(lo.s, hi_lo["s"][1]),
+                     lam=merge(lo.lam, hi_lo["z"][1]))
+    if neq > 0:
+        y = merge(y, hi_lo["y"][0])
+        lo = lo._replace(nu=merge(lo.nu, hi_lo["y"][1]))
+    score = np.asarray(score).astype(np_dt)
+    stats = stats._replace(
+        best_resids=merge(stats.best_resids, score),
+        mu=merge(stats.mu, np.asarray(mu_o).astype(np_dt)),
+        converged=merge(stats.converged, score < config.eps))
+    return x, s, z, y, lo, stats
 
 
 def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
@@ -104,6 +289,14 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
     nineq = G.shape[-2]
     neq = A.shape[-2] if A is not None else 0
     dtype, device = p.dtype, p.device
+    chol_partial = config.kkt_solver == KKTSolver.CHOL_PARTIAL
+    if not chol_partial and config.kkt_solver not in (KKTSolver.FULL,
+                                                      KKTSolver.IR):
+        raise ValueError(config.kkt_solver)
+    if config.escalate not in (None, "oracle"):
+        raise ValueError(f"escalate: {config.escalate!r}")
+    refine_budget, refine_early = resolve_refine_steps(config, dtype)
+    refined = refine_budget > 0
 
     sc = factors.scaling
     scaled = sc is not None
@@ -136,23 +329,32 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
     per_lane_term = improve_margin > 0.0
     resid_every = resolve_resid_every(config, dtype)
 
-    backend = kkt_ops.resolve_backend(config.use_pallas, dtype, nineq,
-                                      device)
-    fs = backend.prepare(factors)
+    # FULL / IR build the saddle system each solve: no backend, and the
+    # prefactorization serves the backward only.
+    backend = fs = None
+    if chol_partial:
+        backend = kkt_ops.resolve_backend(config.use_pallas, dtype, nineq,
+                                          device)
+        fs = backend.prepare(factors)
 
-    fast = fs.invQ_GT is not None
+    fast = chol_partial and fs.invQ_GT is not None
     track = fast and resid_every != 1
     if fast:
         invQ_p = kkt_ops.apply_invQ(fs, p_)
         G_invQ_p = btmv(fs.invQ_GT, p_)
         A_invQ_p = btmv(fs.invQ_AT, p_) if neq > 0 else None
         q = -(h_ + G_invQ_p)
-    else:
-        # The substitution-mode solves read the matrices of the iterate
-        # coordinates.
-        Qm = scaling_mod.scale_Q(Q, sc) if scaled else Q
-        Gm = scaling_mod.scale_G(G, sc) if scaled else G
-        Am = scaling_mod.scale_A(A, sc) if scaled else A
+    if not fast or refined:
+        # The matrices of the iterate coordinates: the substitution-mode
+        # solves and the FULL / IR saddle systems read them, and so does
+        # refinement's solve in inverse mode. The probe's light branch keeps
+        # the factors in original coordinates, so there they are the
+        # inputs themselves.
+        same = not scaled or isinstance(sc, scaling_mod.IdentityScaling)
+        Gm = G if same else scaling_mod.scale_G(G, sc)
+        Am = A if same else scaling_mod.scale_A(A, sc)
+        if not fast:
+            Qm = Q if same else scaling_mod.scale_Q(Q, sc)
 
     # The fused iteration, where the backend has one and one QP's working
     # set fits a thread block.
@@ -208,7 +410,9 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
 
     def kkt_factor_solve(d, rx, rs, rz, ry):
         """The factor of T and the first solve on it in one kernel; returns
-        (fac, dx, ds, dz, dy)."""
+        (fac, dx, ds, dz, dy). FULL / IR have no factor to keep."""
+        if not chol_partial:
+            return (None,) + kkt_solve(None, d, rx, rs, rz, ry)
         rhs_T, u = kkt_ops.prepare_rhs_kkt(fs, d, Gm, Am, rx, rs, rz, ry,
                                            backend.q_solve2)
         fac, dz = backend.factor_solve(fs.R, d, rhs_T)
@@ -216,9 +420,24 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
                                             backend.q_solve2)
 
     def kkt_solve(fac, d, rx, rs, rz, ry):
-        return kkt_ops.solve_kkt(fs, fac, d, Gm, Am, rx, rs, rz, ry,
-                                 solve2=backend.solve2,
-                                 q_solve2=backend.q_solve2)
+        """(dx, ds, dz, dy); any of rx, rs, rz, ry may be None (zero)."""
+        if chol_partial:
+            return kkt_ops.solve_kkt(fs, fac, d, Gm, Am, rx, rs, rz, ry,
+                                     solve2=backend.solve2,
+                                     q_solve2=backend.q_solve2)
+        # The FULL / IR saddle systems take dense right-hand sides.
+        def dense(v, n):
+            return v if v is not None else torch.zeros(
+                (B, n), dtype=dtype, device=device)
+
+        rx, rs, rz = dense(rx, nz), dense(rs, nineq), dense(rz, nineq)
+        if neq > 0:
+            ry = dense(ry, neq)
+        D = torch.diag_embed(d)
+        if config.kkt_solver == KKTSolver.FULL:
+            return kkt_ops.factor_solve_kkt(Qm, D, Gm, Am, rx, rs, rz, ry)
+        return kkt_ops.solve_kkt_ir(Qm, D, Gm, Am, rx, rs, rz, ry,
+                                    eps=config.ir_eps, niter=config.ir_iters)
 
     zero = torch.zeros((), dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
@@ -499,7 +718,15 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
             max_best = torch.minimum(max_best, resids.amax())
         done = (window_done | (max_best < config.eps)
                 | (mu.amin() > config.mu_divergence))
-        if bool(done):  # the one host read per iteration
+        if config.verbose >= 1:
+            # The iteration's one host read carries the print's means.
+            *means, stop = torch.stack([pri.mean(), dual.mean(), mu.mean(),
+                                        done.to(dtype)]).tolist()
+            print(f"iter: {it}, pri_resid: {means[0]:.5e}, dual_resid: "
+                  f"{means[1]:.5e}, mu: {means[2]:.5e}")
+        else:
+            stop = bool(done)  # the one host read per iteration
+        if stop:
             break
 
         if use_fused and xfree:
@@ -540,17 +767,28 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
         best_y = torch.where(take, y, best_y)
         best_resids = torch.minimum(score_f, best_resids)
 
+    if refined:
+        maps = (m_x, m_s, m_z, m_y, w_rx, w_rz, w_ry) if scaled else None
+        (best_x, best_s, best_z, best_y), best_resids, mu, _ = _refine(
+            (best_x, best_s, best_z, best_y), Q, p, G, h, A, b, nineq,
+            kkt_factor_solve, config, maps=maps, steps=refine_budget,
+            early_exit=refine_early)
+
     if config.verbose >= 0:
         max_best = float(best_resids.amax())
         if max_best > 1.0:
             warnings.warn(
                 "qpth_tpu_torch: returning an inaccurate solution (max "
                 f"residual {max_best:.3e} > 1); the problem may be "
-                "infeasible or badly conditioned.", RuntimeWarning,
-                stacklevel=3)
+                "infeasible or badly conditioned. Try SolverConfig("
+                "kkt_solver=KKTSolver.IR) or the CPU oracle.",
+                RuntimeWarning, stacklevel=3)
 
+    # Stats are in original coordinates: the refined score is the original
+    # problem's; the loop's recorded the original score beside the
+    # semantic one.
     its = torch.tensor(iterations, dtype=torch.int32, device=device)
-    if scaled:
+    if scaled and not refined:
         mu_best_o = (torch.abs((best_s * best_z).sum(dim=-1)) / nineq
                      / c_flat)
         stats = SolveStats(iterations=its, best_resids=best_resids_o,
@@ -561,4 +799,9 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
                            converged=best_resids < config.eps)
 
     bx, bs, bz, by = to_orig(best_x, best_s, best_z, best_y)
-    return QPSolution(z=bx, nu=by, lam=bz, s=bs, stats=stats)
+    lo = None
+    if config.escalate is not None:
+        bx, bs, bz, by, lo, stats = _escalate_oracle(
+            stats.best_resids > config.escalate_tol, bx, bs, bz, by, stats,
+            Q, p, G, h, A, b, config)
+    return QPSolution(z=bx, nu=by, lam=bz, s=bs, stats=stats, lo=lo)

@@ -36,6 +36,12 @@ transposed copy is made.
 
 Inverse mode forms Q^-1 and S11^-1 by kernel A and one Gram product under
 both backends, as the JAX package does with its lanes kernel.
+
+``KKTSolver.FULL`` and ``KKTSolver.IR`` (:func:`factor_solve_kkt`,
+:func:`solve_kkt_ir`) build the whole saddle system every solve and factor
+it by partial-pivot LU (``torch.linalg.lu_factor_ex``); the JAX package
+computes these with XLA outside any Pallas kernel, so they have no kernel
+here either.
 """
 
 from __future__ import annotations
@@ -449,4 +455,106 @@ def backsub_kkt(factors: KKTFactors, dz, u, d, G, A, rx, rs, solve2=None):
                   -btmv(A, dy))
     dx = solveQ(g1)
     ds = (-rs - dz) / d if rs is not None else -dz / d
+    return dx, ds, dz, dy
+
+
+def _lu_solver(M):
+    """v -> M^-1 v from one partial-pivot LU factorization of the general
+    matrix M (bM, n, n): the JAX package's ``lu_solve_general``, which XLA
+    computes outside any Pallas kernel there too. The right-hand sides,
+    (b, n, k) or (b, n), have b = 1 or bM (the saddle systems carry d's
+    batch). A singular lane gives inf/NaN, as there."""
+    LU, piv, _ = torch.linalg.lu_factor_ex(M)
+
+    def solve(rhs):
+        vec = rhs.dim() == M.dim() - 1
+        if vec:
+            rhs = rhs.unsqueeze(-1)
+        if rhs.shape[0] == 1 and LU.shape[0] > 1:
+            rhs = rhs.expand(LU.shape[0], *rhs.shape[1:])
+        out = torch.linalg.lu_solve(LU, piv, rhs)
+        return out.squeeze(-1) if vec else out
+
+    return solve
+
+
+def factor_solve_kkt(Q, D, G, A, rx, rs, rz, ry):
+    """``KKTSolver.FULL``: build the full saddle system fresh and do a
+    textbook Schur solve (upstream qpth's LU_FULL path). D: (B, nineq,
+    nineq), the diagonal case is diag_embed(d). Returns (dx, ds, dz, dy)
+    with dy None when neq == 0."""
+    return _factor_solve_saddle(Q, D, G, A, rx, rs, rz, ry, reg_eps=0.0)
+
+
+def _factor_solve_saddle(Q, D, G, A, rx, rs, rz, ry, reg_eps: float):
+    """Shared core of :func:`factor_solve_kkt` (``reg_eps`` = 0) and the
+    regularized solve of :func:`solve_kkt_ir` (S shifted by -eps I; the
+    caller passes Q and D with +eps already on their diagonals)."""
+    nineq, nz = G.shape[-2], G.shape[-1]
+    neq = A.shape[-2] if A is not None else 0
+    B = max(x.shape[0] for x in (Q, D, G, rx, rs, rz) if x is not None)
+    dtype, device = Q.dtype, Q.device
+
+    # H = blockdiag(Q, D); Abar = [[G, I], [A, 0]].
+    H = torch.zeros((max(Q.shape[0], D.shape[0]), nz + nineq, nz + nineq),
+                    dtype=dtype, device=device)
+    H[:, :nz, :nz] = Q
+    H[:, nz:, nz:] = D
+    eye_m = torch.eye(nineq, dtype=dtype, device=device)
+    bA = max(G.shape[0], A.shape[0]) if neq > 0 else G.shape[0]
+    Abar = torch.zeros((bA, nineq + neq, nz + nineq), dtype=dtype,
+                       device=device)
+    Abar[:, :nineq, :nz] = G
+    Abar[:, :nineq, nz:] = eye_m
+    if neq > 0:
+        Abar[:, nineq:, :nz] = A
+        hvec = torch.cat([rz.expand(B, nineq), ry.expand(B, neq)], dim=1)
+    else:
+        hvec = rz
+    g = torch.cat([rx.expand(B, nz), rs.expand(B, nineq)], dim=1)
+
+    solveH = _lu_solver(H)
+    invH_AT = solveH(Abar.transpose(-1, -2))          # (b, nz+m, m+p)
+    invH_g = solveH(g)                                # (B, nz+m)
+    S = bmm(Abar, invH_AT)
+    if reg_eps:
+        S = S - reg_eps * torch.eye(S.shape[-1], dtype=dtype, device=device)
+    t = bmv(Abar, invH_g) - hvec
+    w = _lu_solver(S)(-t)                             # (B, m+p) = [dz; dy]
+    v = solveH(-g - btmv(Abar, w))
+    dx, ds = v[:, :nz], v[:, nz:]
+    dz = w[:, :nineq]
+    dy = w[:, nineq:] if neq > 0 else None
+    return dx, ds, dz, dy
+
+
+def kkt_resid_reg(Q, D, G, A, eps, dx, ds, dz, dy, rx, rs, rz, ry):
+    """Residual of the eps-regularized KKT system (upstream qpth's
+    ``kkt_resid_reg``)."""
+    resx = bmv(Q, dx) + btmv(G, dz) + rx
+    if dy is not None:
+        resx = resx + btmv(A, dy)
+    ress = bmv(D, ds) + dz + rs
+    resz = bmv(G, dx) + ds - eps * dz + rz
+    resy = bmv(A, dx) - eps * dy + ry if dy is not None else None
+    return resx, ress, resz, resy
+
+
+def solve_kkt_ir(Q, D, G, A, rx, rs, rz, ry, eps: float = 1e-7,
+                 niter: int = 1):
+    """``KKTSolver.IR``: regularized saddle solve plus ``niter`` steps of
+    iterative refinement on the unregularized system (upstream qpth's
+    IR_UNOPT path)."""
+    Q_t = Q + eps * torch.eye(Q.shape[-1], dtype=Q.dtype, device=Q.device)
+    D_t = D + eps * torch.eye(D.shape[-1], dtype=D.dtype, device=D.device)
+    dx, ds, dz, dy = _factor_solve_saddle(Q_t, D_t, G, A, rx, rs, rz, ry,
+                                          reg_eps=eps)
+    for _ in range(niter):
+        resx, ress, resz, resy = kkt_resid_reg(
+            Q, D, G, A, eps, dx, ds, dz, dy, rx, rs, rz, ry)
+        ddx, dds, ddz, ddy = _factor_solve_saddle(
+            Q_t, D_t, G, A, -resx, -ress, -resz,
+            -resy if resy is not None else None, reg_eps=eps)
+        dx, ds, dz = dx + ddx, ds + dds, dz + ddz
+        dy = dy + ddy if dy is not None else None
     return dx, ds, dz, dy

@@ -103,21 +103,49 @@ def _build_factors(Qb, Gb, Ab, config: SolverConfig) -> kkt_ops.KKTFactors:
 
 def _forward_batched(Qb, pb, Gb, hb, Ab, bb, config: SolverConfig,
                      init=None, factors=None):
-    """Forward solve on canonical inputs; returns (solution, factors)."""
-    pdipm.check_config(config, Qb.dtype)
+    """Forward solve on canonical inputs; returns (solution, factors), the
+    factors None for the CPU oracle, which keeps none."""
     if config.check_Q_spd:
         spd_check_eager(Qb)
+    if config.solver == QPSolvers.CPU_ORACLE:
+        return _oracle_forward(Qb, pb, Gb, hb, Ab, bb), None
+    if config.solver != QPSolvers.PDIPM_BATCHED:
+        raise ValueError(config.solver)
     if factors is None:
         factors = _build_factors(Qb, Gb, Ab, config)
     return pdipm.solve(Qb, pb, Gb, hb, Ab, bb, factors, config,
                        init=init), factors
 
 
+def _oracle_forward(Qb, pb, Gb, hb, Ab, bb) -> QPSolution:
+    """``QPSolvers.CPU_ORACLE``: every lane solved in float64 on the host by
+    ``solvers/oracle.py`` (upstream qpth's per-instance CVXPY loop), the
+    results returned in the inputs' dtype on their device. Stats report 0
+    iterations and every lane converged, as the JAX package's do."""
+    from .solvers.oracle import solve_qp_batch_np
+
+    B = pb.shape[0]
+    dev, dt = pb.device, pb.dtype
+
+    def host(v):
+        return v.detach().cpu().numpy() if v is not None else None
+
+    out = solve_qp_batch_np(*(host(v) for v in (Qb, pb, Gb, hb, Ab, bb)))
+    x, nu, lam, s = (torch.as_tensor(v).to(dev, dt) for v in out)
+    stats = SolveStats(
+        iterations=torch.zeros((), dtype=torch.int32, device=dev),
+        best_resids=torch.zeros((B,), dtype=dt, device=dev),
+        mu=torch.zeros((B,), dtype=dt, device=dev),
+        converged=torch.ones((B,), dtype=torch.bool, device=dev))
+    return QPSolution(z=x, nu=nu, lam=lam, s=s, stats=stats)
+
+
 class _QPCore(torch.autograd.Function):
     """z* with the implicit-KKT backward (the JAX package's custom_vjp).
     The warm start and the cached factors carry no gradient: the solution
     does not depend on the starting point, and gradients to (Q, G, A) flow
-    through the implicit-KKT formulas."""
+    through the implicit-KKT formulas. A refined forward returns a float64
+    z from float32 inputs; the backward runs in the inputs' dtype."""
 
     @staticmethod
     def forward(ctx, Qb, pb, Gb, hb, Ab, bb, init, factors, config, meta):
@@ -140,6 +168,13 @@ def _backward(ctx, dl_dz):
     """One KKT solve on the cached factors (RHS (dl/dz, 0, 0, 0)); returns
     the cotangents of (Qb, pb, Gb, hb, Ab, bb)."""
     zhat, lam, s, nu, Qb, Gb, Ab = ctx.saved_tensors
+    dt = Qb.dtype
+    if dl_dz.dtype != dt:
+        # A refined forward's float64 solution: the backward solves with
+        # the working-dtype factors and returns cotangents in the inputs'
+        # dtype.
+        dl_dz = dl_dz.to(dt)
+        zhat, lam, s, nu = (v.to(dt) for v in (zhat, lam, s, nu))
     config = ctx.config
     B_global, p_unb, h_unb, b_unb = ctx.meta
     B = dl_dz.shape[0]

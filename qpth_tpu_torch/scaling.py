@@ -178,11 +178,20 @@ def ruiz_scalings(Q, G, A=None, iters: int = 4, pow2: bool = True,
     return Scaling(E=E, RG=RG, RA=RA, c=c), ok
 
 
-def identity_like(s: Scaling) -> Scaling:
+class IdentityScaling(Scaling):
+    """The all-ones scaling of the probe's light branch, marked by its type:
+    the factors stay in original coordinates, so the solver reads G and A
+    themselves where the iterate coordinates' copies are asked for."""
+
+    __slots__ = ()
+
+
+def identity_like(s: Scaling) -> IdentityScaling:
     """All-ones scaling with s's shapes (the identity coordinates)."""
-    return Scaling(E=torch.ones_like(s.E), RG=torch.ones_like(s.RG),
-                   RA=torch.ones_like(s.RA) if s.RA is not None else None,
-                   c=torch.ones_like(s.c))
+    return IdentityScaling(
+        E=torch.ones_like(s.E), RG=torch.ones_like(s.RG),
+        RA=torch.ones_like(s.RA) if s.RA is not None else None,
+        c=torch.ones_like(s.c))
 
 
 def scale_vecs(p, h, b, s: Scaling):

@@ -606,3 +606,121 @@ def test_blocked_solve_on_card_matches_cpu(cuda, case):
     if dtype == torch.float64:
         assert int(on_card.stats.iterations) == int(on_cpu.stats.iterations)
     assert (on_card.z.cpu() - on_cpu.z).abs().max().item() < tol
+
+
+def _refine_dinv(B, m, dtype, device, seed=3):
+    """1/d for refinement's clamped d = max(z, c) / max(s, c), c = 1e-10:
+    active rows (s -> 0) give d ~ 1e10, inactive ones (z -> 0) d ~ 1e-10,
+    so T's diagonal holds 1/d from ~1e-10 to ~1e10."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand(B, m, generator=g, dtype=torch.float64)
+    active = torch.rand(B, m, generator=g) < 0.5
+    tiny, big = 10.0 ** (-16.0 + 6.0 * u), 0.5 + u
+    s = torch.where(active, tiny, big)
+    z = torch.where(active, big, tiny)
+    d = z.clamp(min=1e-10) / s.clamp(min=1e-10)
+    return (1.0 / d).to(dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("kernel", ["factor_inv", "chol"])
+def test_factor_solve_on_refinement_diagonal(cuda, kernel, shared, dtype):
+    """Refinement's one solve per step: kernel A with rhs ("auto") and
+    kernel C with rhs ("blocked") on T = R + diag(1/d) with the clamped d,
+    against their plain versions (relative to each output's largest
+    entry)."""
+    B, m = 256, 100
+    R = _spd(1 if shared else B, m, dtype, cuda, seed=4)
+    dinv = _refine_dinv(B, m, dtype, cuda)
+    rhs = _vecs(B, m, dtype, cuda, seed=5)[0] - 1.0
+    fn, plain = {"factor_inv": (kernels.factor_inv, kernels.factor_inv_plain),
+                 "chol": (kernels.chol, kernels.chol_plain)}[kernel]
+    got = fn(R, dinv, rhs)
+    torch.cuda.synchronize()
+    want = plain(R, dinv, rhs)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        scale = max(1.0, b.abs().max().item())
+        assert (a - b).abs().max().item() <= TOL[dtype] * 10 * scale
+
+
+def _refine_data(B=16, nz=20, nineq=18, seed=3):
+    r = np.random.RandomState(seed)
+    L = r.rand(B, nz, nz)
+    Q = L @ L.transpose(0, 2, 1) + 1e-3 * np.eye(nz)
+    G = r.randn(B, nineq, nz)
+    h = np.einsum("bmn,bn->bm", G, r.randn(B, nz)) + r.rand(B, nineq)
+    return Q, r.randn(B, nz), G, h
+
+
+@pytest.mark.parametrize("backend", ["auto", "blocked"])
+def test_refined_solve_on_card(cuda, backend):
+    """The eps dial on the card: float32 at eps = 1e-8 refines through
+    kernel A (or C) with rhs, one launch per step, to float64 outputs
+    within 1e-8 of the card's float64 solve of the float32-rounded data on
+    the median lane; float64 at eps = 1e-9 matches the CPU to 1e-8 with
+    equal iterations."""
+    data = _refine_data()
+    a32 = [torch.tensor(v, dtype=torch.float32) for v in data]
+    cfg = qt.SolverConfig(eps=1e-8, use_pallas=backend, check_Q_spd=False)
+    kernels.reset_launches()
+    sol = qt.solve_qp_full(*a32, config=cfg)
+    key = "factor_inv_solve" if backend == "auto" else "chol_solve"
+    assert kernels.LAUNCHES[key] > 0 and sol.z.dtype == torch.float64
+    y = qt.solve_qp_full(*(a.double() for a in a32),
+                         config=qt.SolverConfig(eps=1e-9, check_Q_spd=False))
+    err = (sol.z - y.z).norm(dim=1) / y.z.norm(dim=1)
+    assert err.median().item() <= 1e-8
+    a64 = [torch.tensor(v) for v in data]
+    cfg64 = qt.SolverConfig(eps=1e-9, use_pallas=backend, check_Q_spd=False)
+    on_card = qt.solve_qp_full(*a64, config=cfg64)
+    on_cpu = qt.solve_qp_full(*a64, config=cfg64, device="cpu")
+    assert int(on_card.stats.iterations) == int(on_cpu.stats.iterations)
+    assert (on_card.z.cpu() - on_cpu.z).abs().max().item() < 1e-8
+
+
+def test_escalation_and_oracle_on_card(cuda):
+    """Escalation from CUDA tensors: the flagged lanes are those above
+    escalate_tol, the others bit-identical to the solve without it, and the
+    results stay on the card; ``QPSolvers.CPU_ORACLE`` returns on the card
+    and its backward launches kernel A."""
+    Q, p, G, h = _refine_data(B=8)
+    n = Q.shape[-1]
+    U, _ = np.linalg.qr(np.random.RandomState(7).randn(n, n))
+    Q[2] = (U * np.logspace(0, -8, n)) @ U.T + 1e-9 * np.eye(n)
+    a32 = [torch.tensor(v, dtype=torch.float32) for v in (Q, p, G, h)]
+    cfg = qt.SolverConfig(eps=1e-8, refine_steps=12, check_Q_spd=False,
+                          verbose=-1)
+    base = qt.solve_qp_full(*a32, config=cfg)
+    import dataclasses
+    sol = qt.solve_qp_full(*a32, config=dataclasses.replace(
+        cfg, escalate="oracle"))
+    esc = sol.stats.escalated
+    assert esc.device.type == "cuda" and sol.lo.z.device.type == "cuda"
+    assert torch.equal(esc, base.stats.best_resids > 1e-4)
+    assert torch.equal(sol.z[~esc], base.z[~esc])
+    a64 = [torch.tensor(v) for v in (Q, p, G, h)]
+    cfg_o = qt.SolverConfig(solver=qt.QPSolvers.CPU_ORACLE, check_Q_spd=False)
+    args = [t.cuda().requires_grad_(True) for t in a64]
+    kernels.reset_launches()
+    z = qt.solve_qp(*args, config=cfg_o)
+    assert z.device.type == "cuda" and kernels.LAUNCHES["factor_inv"] == 0
+    (z * z).sum().backward()
+    assert kernels.LAUNCHES["factor_inv_solve"] == 1
+    assert all(bool(torch.isfinite(a.grad).all()) for a in args)
+
+
+@pytest.mark.parametrize("solver", ["FULL", "IR"])
+def test_kkt_variants_on_card_match_cpu(cuda, solver):
+    """KKTSolver.FULL / IR from CUDA tensors (LU of the saddle system on the
+    card) against the CPU, float64, to 1e-8."""
+    Q, p, G, h = _refine_data(B=8)
+    Q = Q + np.eye(Q.shape[-1])
+    a64 = [torch.tensor(v) for v in (Q, p, G, h)]
+    cfg = qt.SolverConfig(kkt_solver=qt.KKTSolver[solver], eps=1e-9,
+                          refine_steps=0, check_Q_spd=False)
+    on_card = qt.solve_qp_full(*a64, config=cfg)
+    on_cpu = qt.solve_qp_full(*a64, config=cfg, device="cpu")
+    assert on_card.z.device.type == "cuda"
+    assert (on_card.z.cpu() - on_cpu.z).abs().max().item() < 1e-8

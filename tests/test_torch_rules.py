@@ -6,7 +6,8 @@
   raise instead of falling back;
 * on the CPU the kernel wrappers take their plain versions and count no
   launch;
-* every branch not ported yet raises ``NotImplementedError``."""
+* every branch not ported yet raises ``NotImplementedError``, and the
+  branches ported since run and match the JAX package."""
 
 import ast
 import dataclasses
@@ -198,8 +199,34 @@ CASES = {
 }
 
 
+def _jax_config(cfg):
+    """The JAX package's SolverConfig with ``cfg``'s values."""
+    import qpth_tpu
+
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw["kkt_solver"] = qpth_tpu.KKTSolver[cfg.kkt_solver.name]
+    kw["solver"] = qpth_tpu.QPSolvers(cfg.solver.value)
+    return qpth_tpu.SolverConfig(**kw)
+
+
+def _matches_jax(Q, p, G, h, config, z):
+    """z is finite and within 1e-8 of the JAX package's float64 solve."""
+    import jax.numpy as jnp
+    import qpth_tpu
+
+    want = qpth_tpu.solve_qp_full(*(jnp.asarray(v.numpy()) for v in
+                                    (Q, p, G, h)),
+                                  config=_jax_config(config)).z
+    assert bool(torch.isfinite(z).all())
+    npt.assert_allclose(z.numpy(), np.asarray(want), rtol=0, atol=1e-8)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_unported_branch_raises(case):
+    """Branches that raised ``NotImplementedError`` until their ROADMAP item
+    was ported (items 9, 11, 12, 14) now run: each case solves to a finite
+    solution equal to the JAX package's (float64, 1e-8). ``beyond_fit``
+    (the hybrid path, item 13) still raises."""
     spec = CASES[case]
     if spec.get("fit"):
         # The shared-memory fit is checked on CUDA only; the predicate is
@@ -207,9 +234,9 @@ def test_unported_branch_raises(case):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             kkt_ops.resolve_backend("auto", torch.float32, 238, "cuda")
         return
-    Q, p, G, h = _qp()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        qt.solve_qp_full(Q, p, G, h, config=spec["config"], device="cpu")
+    Q, p, G, h = _qp(torch.float64)
+    sol = qt.solve_qp_full(Q, p, G, h, config=spec["config"], device="cpu")
+    _matches_jax(Q, p, G, h, spec["config"], sol.z)
 
 
 def test_config_matches_jax_fields():
@@ -258,11 +285,12 @@ def test_public_signatures_match_jax(entry):
 @pytest.mark.parametrize("by", ["position", "keyword"])
 def test_qpfunction_cpu_oracle_raises(by):
     """QPSolvers.CPU_ORACLE binds to ``solver`` by position as upstream
-    qpth's factory takes it, and raises naming item 12."""
+    qpth's factory takes it (it raised naming item 12 until the oracle was
+    ported), and solves on the host: the JAX package's z to 1e-8."""
     Q, p, G, h = _qp(torch.float64)
     fn = (qt.QPFunction(1e-12, 0, 3, 20, qt.QPSolvers.CPU_ORACLE,
                         device="cpu") if by == "position" else
           qt.QPFunction(1e-12, 0, 3, 20, solver=qt.QPSolvers.CPU_ORACLE,
                         device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        fn(Q, p, G, h)
+    _matches_jax(Q, p, G, h, qt.SolverConfig(solver=qt.QPSolvers.CPU_ORACLE),
+                 fn(Q, p, G, h))
