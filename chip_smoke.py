@@ -30,7 +30,21 @@ through the kernels at full width (B = 4096, float32 unless said):
   kernel A or kernel C with rhs per step) on the bench workload, path 1's
   data and under "blocked", float64 card against CPU with refinement on,
   escalation of 32 planted cond ~1e8 lanes to the CPU oracle,
-  ``QPSolvers.CPU_ORACLE``, ``KKTSolver.FULL`` / ``IR`` and ``verbose=1``.
+  ``QPSolvers.CPU_ORACLE``, ``KKTSolver.FULL`` / ``IR`` and ``verbose=1``;
+* path 8: the hybrid blocked path past kernel A's fit (kernel A on the
+  diagonal blocks, cuBLAS for the rest) on the config-4 draws of
+  benchmarks/prof_large.py: nz = nineq = 512 under "auto" without and with
+  64 equality rows, nz = 512 with nineq = 100 (the fused steps over Q's
+  blocked factor), one past each fit (float32 238; float64 167, card
+  against CPU), float64 512 card against CPU (kernel A's plain version at
+  full width there), ``use_pallas="hybrid"`` within the fit, and the blocked
+  functions on the card against the same functions on the CPU; phase 10
+  times (a) and (b), sweeps the block size and splits one (a)
+  forward+backward by kernel class;
+* D1 (ROADMAP §3): kernel A's and fused step B's float32 error against
+  float64 on the inputs in tests/data_torch_d1.npz;
+* ``solve_single`` card against CPU, and the torch example scripts for 5
+  steps each.
 
 It checks the results against float64 solves on the card and on the CPU
 and times kernels and solves with CUDA events. Any failed check exits
@@ -158,10 +172,641 @@ def rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
+# ---- path 8: the hybrid blocked path past kernel A's fit ----
+N8 = 512                 # BASELINE config 4 (benchmarks/prof_large.py:62)
+NEQ8 = 64                # its equality rows (prof_large.py:63)
+NINEQ8C = 100            # path 8c: nz past the fit, nineq within it
+N8_F32_EDGE, N8_F64_EDGE = 238, 167   # one past kernel A's fit
+NEQ8_F64 = 16            # equality rows of the float64 edge case
+N8_F64_LANES = 8         # lanes of the float64 512 case, card vs CPU
+E8_DIFF = 1e-3           # path 8e: median z difference, hybrid vs kernels
+SWEEP8 = {"float32": (64, 128, 192), "float64": (64, 128, 160)}
+B8_F64_SWEEP = 2048      # the float64 sweep's batch: (B, 512, 512) float64
+#                          operands are 2.1 GB each at B = 2048
+LANES_OFF8 = B // 200    # lanes whose float32 gradient may be non-finite
+
+
+def make_large(nbatch, n, nineq, neq=0, seed=0):
+    """benchmarks/prof_large.py's config-4 draws, in its order and dtype
+    (float32 numpy): L ~ U(0, 1) for Q = L L^T + 0.05 n I, G = randn /
+    sqrt(n), z0 shared, h = G z0 + U(0, 1), p, and A = randn / sqrt(n) with
+    b = A z0. Q, h and b are formed on the card (:func:`large_tensors`)."""
+    npr = np.random.RandomState(seed)
+    L = npr.rand(nbatch, n, n).astype(np.float32)
+    G = npr.randn(nbatch, nineq, n).astype(np.float32)
+    G /= np.float32(np.sqrt(n))
+    z0 = npr.randn(n).astype(np.float32)
+    s0 = npr.rand(nbatch, nineq).astype(np.float32)
+    p = npr.randn(nbatch, n).astype(np.float32)
+    A = None
+    if neq:
+        A = npr.randn(nbatch, neq, n).astype(np.float32)
+        A /= np.float32(np.sqrt(n))
+    return L, G, z0, s0, p, A
+
+
+def large_tensors(torch, dev, draws, dtype=None):
+    """(Q, p, G, h, A, b) on ``dev`` from :func:`make_large`'s draws,
+    float32 (products in full float32), or cast to ``dtype`` after."""
+    from qpth_tpu_torch.ops.linalg import full_precision
+
+    L, G, z0, s0, p, A = draws
+    n = L.shape[-1]
+    with torch.no_grad(), full_precision():
+        Lt = torch.from_numpy(L).to(dev)
+        Q = torch.matmul(Lt, Lt.transpose(1, 2))
+        del Lt
+        Q += 0.05 * n * torch.eye(n, device=dev)
+        Gt = torch.from_numpy(G).to(dev)
+        z0t = torch.from_numpy(z0).to(dev)
+        h = torch.matmul(Gt, z0t) + torch.from_numpy(s0).to(dev)
+        out = [Q, torch.from_numpy(p).to(dev), Gt, h]
+        if A is not None:
+            At = torch.from_numpy(A).to(dev)
+            out += [At, torch.matmul(At, z0t)]
+        else:
+            out += [None, None]
+    if dtype is not None:
+        out = [None if v is None else v.to(dtype) for v in out]
+    return out
+
+
+@contextlib.contextmanager
+def kernel_a_dims(kernels):
+    """Count kernel A's launches on CUDA tensors by (variant, B, m, dtype,
+    R shared or batched), through the wrapper every caller goes by."""
+    import collections
+
+    seen = collections.Counter()
+    orig = kernels.factor_inv
+
+    def counted(R, dinv, rhs=None, z=None):
+        if R.device.type == "cuda":
+            variant = ("factor_inv" if rhs is None else "factor_inv_solve"
+                       if z is None else "factor_inv_solve_rz")
+            seen[(variant, int(dinv.shape[0]), int(dinv.shape[1]),
+                  str(R.dtype).split(".")[-1],
+                  "shared" if R.shape[0] == 1 else "batched")] += 1
+        return orig(R, dinv, rhs, z)
+
+    kernels.factor_inv = counted
+    try:
+        yield seen
+    finally:
+        kernels.factor_inv = orig
+
+
+def dims_summary(seen):
+    return {f"{v} B={b} m={m} {dt} {sh}": c
+            for (v, b, m, dt, sh), c in sorted(seen.items())}
+
+
+def lane_rel(z, ref):
+    """Per-lane relative error of z against ref (float64)."""
+    return ((z.double() - ref).norm(dim=1)
+            / ref.norm(dim=1).clamp_min(1e-300))
+
+
+KKT_TOL8 = 1e-9          # the float64 yardstick's relative KKT residuals
+
+
+def kkt_residuals(args, sol):
+    """The KKT conditions of min 1/2 z'Qz + p'z s.t. Gz <= h, Az = b at a
+    solution, each the largest lane's max-norm relative to the max norm of
+    its terms (at least 1): stationarity Qz + p + G'lam + A'nu, primal
+    feasibility Gz + s - h, Az - b, complementarity s lam; and the least s
+    and lam. None of it goes through the solver's linear algebra, so it
+    certifies a reference solve independently of the path under test.
+    Complementarity is max s_i lam_i over max s max lam (at least 1)."""
+    Q, p, G, h, A, b = (list(args) + [None, None])[:6]
+
+    def mv(M, v):
+        return (M @ v.unsqueeze(-1)).squeeze(-1)
+
+    def rel_(terms, r):
+        scale = sum(t.abs().amax(dim=1) for t in terms).clamp_min(1.0)
+        return float((r.abs().amax(dim=1) / scale).max())
+
+    Qz, GTl, Gz = mv(Q, sol.z), mv(G.transpose(1, 2), sol.lam), mv(G, sol.z)
+    terms = [Qz, p.expand_as(Qz), GTl]
+    if A is not None:
+        terms.append(mv(A.transpose(1, 2), sol.nu))
+    gap = (sol.s * sol.lam).amax(dim=1) / (
+        sol.s.amax(dim=1) * sol.lam.amax(dim=1)).clamp_min(1.0)
+    out = dict(stationarity=rel_(terms, sum(terms)),
+               primal=rel_([Gz, sol.s, h], Gz + sol.s - h),
+               complementarity=float(gap.max()),
+               min_s=float(sol.s.min()), min_lam=float(sol.lam.min()))
+    if A is not None:
+        Az = mv(A, sol.z)
+        out["equality"] = rel_([Az, b], Az - b)
+    return out
+
+
+def phase_9e(torch, qt, kernels, dev, bench):
+    """Path 8: the hybrid blocked path past kernel A's fit
+    (``use_pallas="hybrid"``, and "auto" past the fit). ``bench``: the
+    bench workload's float32 tensors and phase 3's kernels-backend
+    solution, for (e). Returns (launches, facts, data): the counts and
+    readings of every case, and (a)/(b)'s float32 tensors for phase 10."""
+    from qpth_tpu_torch.ops import hybrid
+
+    launches, facts = {}, {}
+    torch.cuda.empty_cache()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    cfg = qt.SolverConfig(check_Q_spd=False)
+    cfg64 = qt.SolverConfig(check_Q_spd=False)     # float64 default
+    t0 = time.perf_counter()
+    draws = make_large(B, N8, N8, neq=NEQ8, seed=0)
+    Q, p, G, h, A, b = large_tensors(torch, dev, draws)
+    del draws
+    print(f"# phase 9e (path 8): config-4 draws B={B} nz=nineq={N8} "
+          f"neq={NEQ8} made in {time.perf_counter() - t0:.1f} s; "
+          f"{base_mb:.0f} MiB allocated before")
+
+    def run(tag, args, config, expect, allow=()):
+        """Forward (counts reset just before, read just after), the z
+        error of the float32 solve against the card's float64 solve of the
+        first N_F64_CARD lanes, that yardstick certified by its KKT
+        residuals (it runs the same path in float64), and forward+backward
+        with the finite-lanes gate. ``expect``: the kernels that must
+        launch in the forward; ``allow``: those that may launch beside
+        them."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        with kernel_a_dims(kernels) as dims:
+            sol = qt.solve_qp_full(*args, config=config)
+            torch.cuda.synchronize()
+        fwd = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        its_ = int(sol.stats.iterations)
+        peak_f = torch.cuda.max_memory_allocated() / 2 ** 30
+        for name_ in ("z", "lam", "s"):
+            check(bool(torch.isfinite(getattr(sol, name_)).all()),
+                  f"{tag}: {name_} not finite")
+        check(sum(dims.values()) == sum(
+            fwd.get(k, 0) for k in ("factor_inv", "factor_inv_solve",
+                                    "factor_inv_solve_rz")),
+              f"{tag}: kernel A's dims do not count its launches")
+        with torch.no_grad():
+            args64 = [None if v is None else v[:N_F64_CARD].double()
+                      for v in args]
+            ref = qt.solve_qp_full(*args64, config=cfg64)
+            cert = kkt_residuals(args64, ref)
+            del args64
+        err = lane_rel(sol.z[:N_F64_CARD], ref.z)
+        med = float(err.median())
+        print(f"# {tag}: iterations {its_}, launches {fwd}, kernel A "
+              f"launches by dims {dims_summary(dims)}; f32 vs f64 (card) "
+              f"over {N_F64_CARD} lanes: median relative z error "
+              f"{med:.3e}, max {float(err.max()):.3e} (f64 iterations "
+              f"{int(ref.stats.iterations)}); peak memory {peak_f:.2f} GiB")
+        print(f"# {tag}: the f64 yardstick's KKT residuals over "
+              f"{N_F64_CARD} lanes: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in cert.items()))
+        check(max(v for k, v in cert.items() if not k.startswith("min_"))
+              <= KKT_TOL8 and cert["min_s"] >= 0 and cert["min_lam"] >= 0,
+              f"{tag}: the f64 yardstick fails its KKT conditions {cert}")
+        check(med <= 2e-2, f"{tag}: f32 median relative error {med:.3e} "
+              "> 2e-2")
+        for k in expect:
+            check(fwd.get(k, 0) > 0, f"{tag}: {k} did not launch")
+        check(set(fwd) <= set(expect) | set(allow),
+              f"{tag}: launches {fwd} outside {expect} and {allow}")
+        out = dict(iterations=its_, z_err_median=med,
+                   z_err_max=float(err.max()), forward_peak_gib=peak_f,
+                   kernel_a_dims=dims_summary(dims),
+                   kernel_a_m=sorted({k[2] for k in dims}),
+                   f64_yardstick_kkt=cert)
+        launches_ = dict(forward=fwd)
+        del ref, sol
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        leaves = [None if v is None else v.clone().requires_grad_(True)
+                  for v in args]
+        z = qt.solve_qp(*leaves, config=config)
+        (z * z).sum().backward()
+        torch.cuda.synchronize()
+        launches_["forward_backward"] = {
+            k: v for k, v in kernels.LAUNCHES.items() if v}
+        bad = torch.zeros(z.shape[0], dtype=torch.bool, device=dev)
+        for v in leaves:
+            if v is not None:
+                bad |= ~torch.isfinite(v.grad.reshape(
+                    v.shape[0], -1)).all(dim=1)
+        n_bad = int(bad.sum())
+        peak_b = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"# {tag}: forward+backward launches "
+              f"{launches_['forward_backward']}; lanes with a "
+              f"non-finite gradient {n_bad} of {z.shape[0]}; peak "
+              f"memory {peak_b:.2f} GiB")
+        check(n_bad <= LANES_OFF8,
+              f"{tag}: {n_bad} lanes with a non-finite gradient")
+        out.update(nonfinite_grad_lanes=n_bad,
+                   forward_backward_peak_gib=peak_b)
+        del leaves, z
+        torch.cuda.empty_cache()
+        return out, launches_
+
+    # (a) nz = nineq = 512, neq = 0: "auto" routes to the hybrid backend.
+    facts["a"], launches["a"] = run(
+        f"phase 9e (path 8a): auto f32 B={B} nz=nineq={N8}",
+        (Q, p, G, h), cfg, ("factor_inv",))
+    # (b) the same with neq = 64 (S11 within the fit: kernel A on it).
+    facts["b"], launches["b"] = run(
+        f"phase 9e (path 8b): auto f32 B={B} nz=nineq={N8} neq={NEQ8}",
+        (Q, p, G, h, A, b), cfg, ("factor_inv",))
+    # (c) nz = 512 past the fit, nineq = 100 within it: Q as facQ, the
+    # fused steps over its products (G's first 100 rows, h's with them).
+    Gc, hc = G[:, :NINEQ8C].contiguous(), h[:, :NINEQ8C].contiguous()
+    within = ("factor_inv_solve_rz", "factor_inv_solve", "inv_solve")
+    facts["c"], launches["c"] = run(
+        f"phase 9e (path 8c): auto f32 B={B} nz={N8} nineq={NINEQ8C}",
+        (Q, p, Gc, hc), cfg, ("factor_inv", "ipm_step_xfree"), within)
+    facts["c_eq"], launches["c_eq"] = run(
+        f"phase 9e (path 8c): auto f32 B={B} nz={N8} nineq={NINEQ8C} "
+        f"neq={NEQ8}", (Q, p, Gc, hc, A, b), cfg,
+        ("factor_inv", "ipm_step_eq"), within)
+    del Gc, hc
+
+    # (d) one past each fit: float32 238 under "auto"; float64 167, card
+    # against CPU, in substitution mode and in inverse mode (facQ); and
+    # float64 512 with NEQ8 rows in substitution mode over N8_F64_LANES
+    # lanes: T in eight blocks on the card against kernel A's plain
+    # version at full width on the CPU, which does not go through
+    # ops/hybrid.py.
+    e32 = large_tensors(torch, dev, make_large(B, N8_F32_EDGE, N8_F32_EDGE,
+                                               seed=1))
+    facts["d_f32"], launches["d_f32"] = run(
+        f"phase 9e (path 8d): auto f32 B={B} nz=nineq={N8_F32_EDGE}",
+        e32[:4], cfg, ("factor_inv",))
+    check(facts["d_f32"]["kernel_a_m"] == sorted(
+        {hybrid.BLOCK, N8_F32_EDGE % hybrid.BLOCK} - {0}),
+          "path 8d: kernel A did not run on the blocks of 238")
+    del e32
+    eps9 = dict(eps=1e-9, refine_steps=0, check_Q_spd=False)
+    d64 = {N8_F64_EDGE: make_large(N_F64_CPU, N8_F64_EDGE, N8_F64_EDGE,
+                                   neq=NEQ8_F64, seed=2),
+           N8: make_large(N8_F64_LANES, N8, N8, neq=NEQ8, seed=3)}
+    for key, n_d, cfg_d in (
+            ("d_f64_subst", N8_F64_EDGE, qt.SolverConfig(**eps9)),
+            ("d_f64_inverse", N8_F64_EDGE, qt.SolverConfig(
+                solve_method="inverse", **eps9)),
+            ("d_f64_subst_512", N8, qt.SolverConfig(**eps9))):
+        got = {}
+        card_args = large_tensors(torch, dev, d64[n_d], torch.float64)
+        for device in (dev, "cpu"):
+            args = [v.to(device) for v in card_args]
+            kernels.reset_launches()
+            with kernel_a_dims(kernels) as dims:
+                sol = qt.solve_qp_full(*args, config=cfg_d, device=device)
+            leaves = [v.clone().requires_grad_(True) for v in args]
+            z = qt.solve_qp(*leaves, config=cfg_d, device=device)
+            (z * z).sum().backward()
+            got[str(device)] = (sol, [v.grad for v in leaves], dims)
+        (sc, gc, dims), (sh, gh, _) = got[str(dev)], got["cpu"]
+        ez, enu = rel(sc.z.cpu(), sh.z), rel(sc.nu.cpu(), sh.nu)
+        eg = {n_: rel(a.cpu(), c) for n_, a, c in zip("QpGhAb", gc, gh)}
+        print(f"# phase 9e (path 8d, {key}) f64 nz=nineq={n_d} "
+              f"neq={card_args[4].shape[1]}: card vs CPU over "
+              f"{card_args[0].shape[0]} lanes: z "
+              f"{ez:.3e}, nu {enu:.3e}, gradients "
+              + ", ".join(f"{n_} {e:.3e}" for n_, e in eg.items())
+              + f"; iterations {int(sc.stats.iterations)} / "
+              f"{int(sh.stats.iterations)}; card's kernel A launches "
+              f"{dims_summary(dims)}")
+        check(ez <= 1e-8 and enu <= 1e-8, f"path 8d {key}: z / nu")
+        check(all(e <= 1e-7 for e in eg.values()),
+              f"path 8d {key}: gradients")
+        check(int(sc.stats.iterations) == int(sh.stats.iterations),
+              f"path 8d {key}: iterations differ")
+        check(sum(dims.values()) > 0 and all(
+            k[2] <= hybrid.BLOCK for k in dims),
+              f"path 8d {key}: kernel A did not run on blocks")
+        facts[key] = dict(z=ez, nu=enu, grads=eg,
+                          iterations=int(sc.stats.iterations),
+                          kernel_a_dims=dims_summary(dims))
+    del d64, got
+
+    # (e) use_pallas="hybrid" within the fit (one block) against the kernels
+    # backend, the same iterations or one more. Two float32 IPM runs whose
+    # factors round differently part by the loop's own float32 error (the
+    # card read a median difference of 1.955e-04 beside errors of 2.1e-04
+    # and 1.7e-04 against float64), not by one rounding: the difference is
+    # gated at E8_DIFF, and each error against float64 as below.
+    f32b, sol_k, err_k = bench
+    cfg_h = qt.SolverConfig(check_Q_spd=False, use_pallas="hybrid")
+    kernels.reset_launches()
+    sol_h = qt.solve_qp_full(*f32b, config=cfg_h)
+    torch.cuda.synchronize()
+    le = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    with torch.no_grad():
+        ref = qt.solve_qp_full(*(v[:N_F64_CARD].double() for v in f32b),
+                               config=qt.SolverConfig(
+                                   solve_method="inverse", resid_every=7,
+                                   check_Q_spd=False))
+    err_h = float(lane_rel(sol_h.z[:N_F64_CARD], ref.z).median())
+    diff = float(lane_rel(sol_h.z, sol_k.z.double()).median())
+    its_h, its_k = int(sol_h.stats.iterations), int(sol_k.stats.iterations)
+    print(f"# phase 9e (path 8e): use_pallas='hybrid' f32 B={B} nz=nineq="
+          f"{NZ}: iterations {its_h} (kernels backend {its_k}), launches "
+          f"{le}; median relative z error vs f64 {err_h:.3e} (kernels "
+          f"backend {err_k:.3e}); median relative z difference between "
+          f"the two {diff:.3e}")
+    check(its_h in (its_k, its_k + 1), "path 8e: iterations")
+    check(diff <= E8_DIFF, f"path 8e: hybrid and kernels backends part by "
+          f"{diff:.3e} > {E8_DIFF}")
+    check(err_h <= max(2 * err_k, 1e-6) and err_h <= 2e-2,
+          "path 8e: hybrid error above twice the kernels backend's")
+    check(le.get("factor_inv", 0) > 0 and not le.get("ipm_step_xfree"),
+          "path 8e: the hybrid backend did not run kernel A alone")
+    facts["e"] = dict(iterations=its_h, kernels_iterations=its_k,
+                      z_err_median=err_h, kernels_z_err_median=err_k,
+                      z_diff_median=diff)
+    launches["e"] = dict(forward=le)
+    del sol_h, ref
+
+    # (f) the blocked functions on the card against the same functions on
+    # the CPU (kernel A's plain version), phase 2 style.
+    errs_f = {}
+    for dtype, m_, tol in ((torch.float32, N8, TOL_F32),
+                           (torch.float32, N8_F32_EDGE, TOL_F32),
+                           (torch.float64, N8, TOL_F64),
+                           (torch.float64, N8_F64_EDGE, TOL_F64)):
+        g_ = torch.Generator(device=dev).manual_seed(80 + m_)
+        Lr = torch.rand(64, m_, m_, generator=g_, device=dev,
+                        dtype=torch.float64)
+        T_ = (Lr @ Lr.transpose(1, 2) / m_ + torch.eye(
+            m_, device=dev, dtype=torch.float64)).to(dtype)
+        v_ = torch.rand(64, m_, generator=g_, device=dev,
+                        dtype=torch.float64).to(dtype) - 0.5
+        V_ = torch.rand(64, m_, 96, generator=g_, device=dev,
+                        dtype=torch.float64).to(dtype) - 0.5
+        dinv_ = torch.rand(64, m_, generator=g_, device=dev,
+                           dtype=torch.float64).to(dtype)
+
+        def funcs(T, v, V, dinv):
+            fac, x = hybrid.factor_solve_hybrid(T, v, dinv=dinv)
+            fac0 = hybrid.factor_hybrid(T)
+            return dict(
+                factor=tuple(fac.Gs) + tuple(fac.Ps[:-1]),
+                factor_solve=x, solve=hybrid.solve_hybrid(fac0, v),
+                solve_mat=hybrid.solve_hybrid_mat(fac0, V),
+                spd_inv=hybrid.spd_inv_hybrid(T))
+
+        kernels.reset_launches()
+        with kernel_a_dims(kernels) as dims:
+            card = funcs(T_, v_, V_, dinv_)
+            torch.cuda.synchronize()
+        print(f"# phase 9e (path 8f): {dtype} m={m_}: kernel A launches by "
+              f"dims {dims_summary(dims)}")
+        check(sum(dims.values()) == kernels.LAUNCHES["factor_inv"] > 0,
+              f"path 8f: kernel A did not launch on the blocks at m={m_}")
+        host = funcs(*(t.cpu() for t in (T_, v_, V_, dinv_)))
+        for name_ in card:
+            a_ = card[name_] if isinstance(card[name_], tuple) else (
+                card[name_],)
+            c_ = host[name_] if isinstance(host[name_], tuple) else (
+                host[name_],)
+            e_abs = max(float((x.cpu() - y).abs().max())
+                        for x, y in zip(a_, c_))
+            scale = max(float(y.abs().max()) for y in c_)
+            e_sc = e_abs / max(scale, 1.0)
+            errs_f[f"{name_} {str(dtype).split('.')[-1]} m={m_}"] = e_abs
+            print(f"# phase 9e (path 8f): {name_} {dtype} B=64 m={m_}: max "
+                  f"abs err {e_abs:.3e}, scaled {e_sc:.3e} (tol {tol:.0e})")
+            check(e_sc <= tol, f"path 8f: {name_} {dtype} m={m_} "
+                  f"{e_sc:.3e} > {tol}")
+    facts["f_max_abs_err"] = errs_f
+    return launches, facts, dict(a=(Q, p, G, h), b=(Q, p, G, h, A, b))
+
+
+def d1_measure(torch, kernels, dev):
+    """ROADMAP §3's D1 on the card: kernel A's float32 inverse factor of
+    bench.py's Q and of one iteration's T, and fused step B on that
+    iteration, against float64 on the same inputs
+    (tests/data_torch_d1.npz, written on the CPU by
+    tests/make_torch_d1_data.py beside the CPU readings)."""
+    data = np.load(os.path.join(ROOT, "tests", "data_torch_d1.npz"))
+    n = data["s"].shape[1]
+    ii, jj = np.tril_indices(n)
+
+    def sym(P):
+        M = np.zeros((P.shape[0], n, n), np.float32)
+        M[:, ii, jj] = P
+        M[:, jj, ii] = P
+        return torch.from_numpy(M).to(dev)
+
+    def linv_err(G_, T64):
+        exact = torch.linalg.solve_triangular(
+            torch.linalg.cholesky(T64),
+            torch.eye(n, dtype=torch.float64, device=dev), upper=False)
+        return ((G_.double() - exact).norm(dim=(1, 2))
+                / exact.norm(dim=(1, 2)))
+
+    s, z, q = (torch.from_numpy(data[k]).to(dev) for k in ("s", "z", "q"))
+    out = {}
+    for key, M, dinv in (("Q", sym(data["Q"]), torch.zeros_like(s)),
+                         ("T", sym(data["R"]), s / z)):
+        T64 = M.double() + torch.diag_embed(dinv.double())
+        e_card = linv_err(kernels.factor_inv(M, dinv.contiguous()), T64)
+        e_host = linv_err(kernels.factor_inv_plain(
+            M.cpu(), dinv.cpu()).to(dev), T64)
+        out[key] = dict(
+            card_median=float(e_card.median()), card_max=float(e_card.max()),
+            plain_cpu_median=float(e_host.median()),
+            **{f"{k}_median": float(np.median(data[f"err_{key}_{k}"]))
+               for k in ("jax_kernel", "port_plain",
+                         "port_plain_rounded_once")})
+        print(f"# D1: inverse factor of {key} (B={M.shape[0]}, m={n}, f32) "
+              f"against f64: kernel A on the card median "
+              f"{out[key]['card_median']:.3e} max {out[key]['card_max']:.3e}"
+              f"; plain version on this host's CPU "
+              f"{out[key]['plain_cpu_median']:.3e}; stored CPU readings: "
+              f"JAX kernel {out[key]['jax_kernel_median']:.3e}, port plain "
+              f"{out[key]['port_plain_median']:.3e}, rounded once "
+              f"{out[key]['port_plain_rounded_once_median']:.3e}")
+    R = sym(data["R"])
+    zeta = kernels.ipm_step_xfree(R, s, z, q)[0]
+    zeta64 = kernels.ipm_step_xfree_plain(R.double(), s.double(), z.double(),
+                                          q.double())[0]
+    zeta32 = kernels.ipm_step_xfree_plain(R.cpu(), s.cpu(), z.cpu(),
+                                          q.cpu())[0].to(dev)
+    e_b, e_p = lane_rel(zeta, zeta64), lane_rel(zeta32, zeta64)
+    out["B_zeta"] = dict(card_median=float(e_b.median()),
+                         card_max=float(e_b.max()),
+                         plain_cpu_median=float(e_p.median()),
+                         plain_cpu_max=float(e_p.max()))
+    print(f"# D1: fused step B on iteration {int(data['iteration'])}'s "
+          f"(R, s, z, q) (it returns no Linv; its output zeta = z + dz "
+          f"against the plain step in f64): card median "
+          f"{out['B_zeta']['card_median']:.3e} max "
+          f"{out['B_zeta']['card_max']:.3e}; plain version on the CPU "
+          f"median {out['B_zeta']['plain_cpu_median']:.3e} max "
+          f"{out['B_zeta']['plain_cpu_max']:.3e}")
+    return out
+
+
+def phase_9f(torch, qt, kernels, dev):
+    """``solve_single`` on one bench-sized QP (float64, card against CPU at
+    1e-9) and each torch example script for 5 steps on the card."""
+    import importlib.util
+
+    Q, p, G, h = (v[0] for v in make_problem(1, NZ, NINEQ, seed=0))
+    Q = Q + np.eye(NZ)
+    got = {}
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        sol = qt.solve_single(*(torch.tensor(v) for v in (Q, p, G, h)),
+                              device=device)
+        got[str(device)] = (sol, time.perf_counter() - t0)
+    (sc, tc), (sh, th) = got[str(dev)], got["cpu"]
+    e = rel(sc.z.cpu(), sh.z)
+    print(f"# phase 9f: solve_single f64 nz=nineq={NZ}: card vs CPU z "
+          f"{e:.3e}, iterations {int(sc.iterations)} / {int(sh.iterations)}"
+          f", resid {float(sc.resid):.3e}; {tc:.2f} s on the card, {th:.2f}"
+          " s on the CPU")
+    check(e <= 1e-9 and int(sc.iterations) == int(sh.iterations),
+          "solve_single card vs CPU")
+    out = dict(solve_single=dict(z=e, iterations=int(sc.iterations)))
+    for name in ("torch_cls_layer", "torch_sudoku"):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        kernels.reset_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            losses, acc = mod.main(["--steps", "5", "--device", "cuda"])
+        torch.cuda.synchronize()
+        lk = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        print(f"# phase 9f: examples/{name}.py, 5 steps on the card: losses "
+              + ", ".join(f"{v:.5f}" for v in losses)
+              + f"; final accuracy {acc:.3f}; launches {lk}")
+        check(len(losses) == 5 and all(np.isfinite(losses)),
+              f"{name}: non-finite loss")
+        check(sum(lk.values()) > 0, f"{name}: no kernel launched")
+        out[name] = dict(losses=losses, accuracy=acc, launches=lk)
+    return out
+
+
+def path8_timings(torch, qt, kernels, dev, data, host_ms, report, spread):
+    """Phase 10 for path 8: forward and forward+backward ms of (a) and (b)
+    (median of 5), the block-size sweep (forward ms, median of 3; float64
+    at B8_F64_SWEEP lanes), and the device split of one (a)
+    forward+backward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qpth_tpu_torch.ops import hybrid
+
+    cfg = qt.SolverConfig(check_Q_spd=False)
+
+    def grads(args):
+        leaves = [v.clone().requires_grad_(True) for v in args]
+        z = qt.solve_qp(*leaves, config=cfg)
+        (z * z).sum().backward()
+
+    out = {}
+    for key in ("a", "b"):
+        args = data[key]
+        fwd = report(f"path8 ({key}) forward", host_ms(
+            lambda: qt.solve_qp_full(*args, config=cfg)))
+        lo_f, hi_f = spread["last"]
+        fb = report(f"path8 ({key}) forward+backward", host_ms(
+            lambda: grads(args)))
+        lo_b, hi_b = spread["last"]
+        out[key] = dict(forward_ms=fwd, forward_min=lo_f, forward_max=hi_f,
+                        forward_backward_ms=fb, forward_backward_min=lo_b,
+                        forward_backward_max=hi_b)
+
+    sweep = {}
+    for dt_name, blocks in SWEEP8.items():
+        dtype = getattr(torch, dt_name)
+        nb = B if dtype == torch.float32 else B8_F64_SWEEP
+        args = [v[:nb].to(dtype) for v in data["a"]]
+        keep = hybrid.BLOCK
+        sweep[dt_name] = {"batch": nb}
+        try:
+            for blk in blocks:
+                check(kernels.fits(blk, dtype), f"sweep: block {blk} does "
+                      f"not fit kernel A in {dt_name}")
+                hybrid.BLOCK = blk
+                ms = host_ms(lambda: qt.solve_qp_full(*args, config=cfg),
+                             reps=3)
+                lo, hi = spread["last"]
+                its_ = int(qt.solve_qp_full(*args,
+                                            config=cfg).stats.iterations)
+                print(f"# phase 10: path8 sweep {dt_name} B={nb} nz=nineq="
+                      f"{N8} block {blk}: forward {ms:.2f} ms (min {lo:.2f}"
+                      f", max {hi:.2f}), iterations {its_}"
+                      + (" (default)" if blk == keep else ""))
+                sweep[dt_name][str(blk)] = dict(forward_ms=ms, min=lo,
+                                                max=hi, iterations=its_)
+        finally:
+            hybrid.BLOCK = keep
+        sweep[dt_name]["default"] = keep
+        del args
+        torch.cuda.empty_cache()
+    out["sweep"] = sweep
+
+    # Device split of one (a) forward+backward by kernel class.
+    args = data["a"]
+    grads(args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grads(args)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by = [(e.self_device_time_total / 1e3, e.count, e.key)
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    busy = sum(t for t, _, _ in by)
+
+    def cls(name):
+        n_ = name.lower()
+        if "factor_inv" in n_:
+            return "kernel A"
+        if "ipm_step" in n_ or "inv_solve" in n_:
+            return "other hand kernels"
+        if any(s in n_ for s in ("gemm", "gemv", "cutlass", "xmma",
+                                 "sm90_", "dot_kernel", "splitk")):
+            return "GEMM/GEMV (cuBLAS)"
+        return "elementwise, reductions, copies"
+
+    split = {}
+    for t, c, k in by:
+        s_ = split.setdefault(cls(k), [0.0, 0])
+        s_[0] += t
+        s_[1] += c
+    out["trace"] = dict(
+        wall_ms=wall, device_busy_ms=busy or None,
+        device_idle_share=(1 - busy / wall) if busy else None,
+        split={k: dict(ms=v[0], launches=v[1]) for k, v in split.items()},
+        top=[dict(ms=t, count=c, name=k[:80])
+             for t, c, k in sorted(by, reverse=True)[:8]])
+    if busy:
+        print(f"# phase 10: trace of one path 8 (a) forward+backward: wall "
+              f"{wall:.2f} ms, device busy {busy:.2f} ms, idle share "
+              f"{1 - busy / wall:.3f}; by class: " + ", ".join(
+                  f"{k} {v[0]:.2f} ms x{v[1]}" for k, v in sorted(
+                      split.items(), key=lambda kv: -kv[1][0])))
+        for t, c, k in sorted(by, reverse=True)[:8]:
+            print(f"#   {t:9.3f} ms  x{c:<5d} {k[:90]}")
+    else:
+        print("# phase 10: trace (path 8 a): the profiler saw no device "
+              "time (not measured)")
+    return out
+
+
 def main():
     import torch
 
     # ---- phase 0: facts ----
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("CUDA is not available: nothing to drive", file=sys.stderr)
         sys.exit(2)
@@ -191,6 +836,7 @@ def main():
     sys.path.insert(0, ROOT)
     import qpth_tpu_torch as qt
     from qpth_tpu_torch.ops import cholesky as chol_ops
+    from qpth_tpu_torch.ops import hybrid
     from qpth_tpu_torch.ops.cuda import build, kernels
 
     dev = torch.device("cuda")
@@ -270,6 +916,26 @@ def main():
                     f"n_correctors={nc}", got,
                     kernels.ipm_step_xfree_plain(R, dinv, z, q - 1.0, nc),
                     TOL_F32, "ipm_step_xfree")
+    # Kernel A at the shapes path 8 (phase 9e) gives it: B batched blocks of
+    # the default width and the last partial block one past each fit (238
+    # in float32, 167 in float64), with T's shift and without one (Q's and
+    # S11's blocks).
+    for dtype, tol, m_edge in ((torch.float32, TOL_F32, N8_F32_EDGE),
+                               (torch.float64, TOL_F64, N8_F64_EDGE)):
+        dt = str(dtype).split(".")[-1]
+        for m_ in (hybrid.BLOCK, m_edge % hybrid.BLOCK):
+            R = spd(B, m_, dtype, 5)
+            dinv = vecs(B, m_, dtype, 6, k=1)[0]
+            for shift in (True, False):
+                d_ = dinv if shift else torch.zeros_like(dinv)
+                got = kernels.factor_inv(R, d_)
+                torch.cuda.synchronize()
+                compare(f"factor_inv {dt} B={B} m={m_} bR={B} shift={shift}"
+                        " (path 8's blocks)", got,
+                        kernels.factor_inv_plain(R, d_), tol,
+                        "factor_inv" if dtype == torch.float32 else None)
+    del R, dinv, d_, got
+
     # float64 at an odd shape: a tight check catches indexing faults. One
     # lane is made non-SPD; both versions must freeze exactly that lane.
     Bo, mo = 64, 37
@@ -374,6 +1040,8 @@ def main():
                  ((), ("R", "g", "eq"), ("R", "eq"))]
     eq_shapes.append((SUDOKU["nx"], SUDOKU["nx"], SUDOKU["neq"],
                       ("R", "g", "eq")))
+    # Path 8c's shape: nz = 512 past the block's THREADS = 256 lanes.
+    eq_shapes.append((NINEQ8C, N8, NEQ8, ()))
     for m_, nz_, neq_, shared in eq_shapes:
         mats, v = step_operands(B, m_, nz_, neq_, shared, torch.float32, 40)
         for nc in (0, 2):
@@ -2051,6 +2719,18 @@ def main():
     path_launches["path7_refine"] = launches7
     path_facts["path7_refine"] = facts7
 
+    # ---- D1 (ROADMAP §3): kernel A's and step B's float32 error ----
+    d1 = d1_measure(torch, kernels, dev)
+
+    # ---- phase 9e (path 8): the hybrid blocked path past the fit ----
+    launches8, facts8, data8 = phase_9e(torch, qt, kernels, dev,
+                                        (f32, sol, med))
+    path_launches["path8_hybrid"] = launches8
+    path_facts["path8_hybrid"] = facts8
+
+    # ---- phase 9f: solve_single and the torch example scripts ----
+    single_examples = phase_9f(torch, qt, kernels, dev)
+
     # ---- phase 10: timings (CUDA events, median of REPS after warm-up) ----
     def cuda_ms(fn, reps=REPS, warm=3):
         for _ in range(warm):
@@ -2332,6 +3012,45 @@ def main():
               + (f"{lib_:.4f} ms" if lib_ is not None else "not measured")
               + f", events {f_['library_ms']:.4f} ms")
     del args11, M5, Linv5, eye5
+    # Kernel A at path 8's diagonal blocks: B batched blocks of the default
+    # width with T's shift, launched as path 8 (a) launches it.
+    m8 = hybrid.BLOCK
+    R8 = spd(B, m8, torch.float32, 94)
+    dinv8 = vecs(B, m8, torch.float32, 95, k=1)[0]
+    T8 = R8 + torch.diag_embed(dinv8)
+    eye8 = torch.eye(m8, device=dev).expand(B, m8, m8)
+
+    def library_linv8():
+        L8, _ = torch.linalg.cholesky_ex(T8)
+        return torch.linalg.solve_triangular(L8, eye8, upper=False)
+
+    def kernel8():
+        return kernels.factor_inv(R8, dinv8)
+
+    # R's triangle and dinv in, Linv out.
+    nbytes8 = B * (m8 * (m8 + 1) // 2 + m8 + m8 * m8) * elt
+    b_ms, b_by = bound(nbytes8, B * (2.0 / 3.0) * m8 ** 3)
+    row8 = dict(
+        launches=path_launches["path8_hybrid"]["a"]["forward_backward"][
+            "factor_inv"],
+        ms=cuda_ms(kernel8),
+        plain_ms=cuda_ms(lambda: kernels.factor_inv_plain(R8, dinv8),
+                         reps=REPS),
+        bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes8,
+        library_ms=cuda_ms(library_linv8), dtype="float32",
+        device_ms=device_ms(kernel8),
+        library_device_ms=device_ms(library_linv8))
+    rows[0]["path8_block"] = row8
+    dev8, ldev8 = row8["device_ms"], row8["library_device_ms"]
+    print(f"# phase 10: factor_inv at path 8's blocks (B={B} m={m8} float32"
+          f", with the shift): {row8['ms']:.3f} ms, device "
+          + (f"{dev8:.4f}" if dev8 is not None else "not measured")
+          + f" (plain {row8['plain_ms']:.3f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}, {nbytes8 / 1e6:.1f} MB, library {row8['library_ms']:.3f}"
+          " ms, device "
+          + (f"{ldev8:.4f}" if ldev8 is not None else "not measured")
+          + f"); launches on path 8 (a) forward+backward {row8['launches']}")
+    del R8, dinv8, T8, eye8
     del mats, v, Linv, Linv64, R64, step_args, eq_args
 
     # Kernels C, D and E at the main shape (B = 4096, m = 100), float32 and
@@ -2487,6 +3206,22 @@ def main():
                 c: {w: p7l[c][w][key] for w in ("forward",
                                                 "forward_backward")}
                 for c in ("a", "b", "c")}
+    # Path 8's launches of kernel A (row 1: every diagonal block) and of
+    # the kernels that run over the hybrid prefactor where nineq fits (8c).
+    p8l = path_launches["path8_hybrid"]
+    for r in rows:
+        key = {f"qpth_tpu/ops/pallas/lanes.py:{ln}": k for ln, k in (
+            (531, "factor_inv"), (550, "factor_inv_solve_rz"),
+            (540, "factor_inv_solve"), (1103, "ipm_step_xfree"),
+            (567, "inv_solve"), (1158, "ipm_step_eq"))}.get(r["replaces"])
+        if key:
+            r["path8_launches"] = {c: {w: n_.get(key, 0)
+                                       for w, n_ in p8l[c].items()}
+                                   for c in p8l}
+        if key == "factor_inv":
+            r["path8_kernel_a_dims"] = {
+                c: facts8[c]["kernel_a_dims"]
+                for c in ("a", "b", "c", "c_eq", "d_f32")}
 
     spread = {}
 
@@ -2643,6 +3378,13 @@ def main():
                                      lambda: qt.solve_qp_full(
                                          *e32, config=cfg7e_esc)))
 
+    # Path 8: (a) and (b) end to end, the block-size sweep, the device
+    # split of one (a) forward+backward.
+    paths_ms["path8_hybrid"] = dict(timings=path8_timings(
+        torch, qt, kernels, dev, data8, host_ms, report, spread))
+    del data8
+    torch.cuda.empty_cache()
+
     # Device time of one forward+backward by kernel (torch.profiler), and
     # the share of the wall time the device was idle: the neq = 0 main
     # path, path 1, and path 5 composed and fused.
@@ -2690,6 +3432,9 @@ def main():
     paths_ms["path1_eq_batched"]["trace"] = trace1
     paths_ms["path5_diag"]["trace"] = trace5
     paths_ms["path6_blocked"]["trace"] = trace6
+    paths_ms["d1"] = d1
+    paths_ms["single_and_examples"] = single_examples
+    print(f"# total wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows, "end_to_end": {
         "forward_ms": fwd_ms, "forward_backward_ms": fb_ms,
         "forward_qps": B / fwd_ms * 1e3,

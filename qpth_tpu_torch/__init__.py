@@ -10,8 +10,10 @@ float32 and the float64 default configurations (inverse and substitution
 mode, tracked and untracked residuals, warm starts), and the closed-form
 solver for nineq = 0; the diagonal structured tier (``solve_qp_diag``,
 ``solve_qp_diag_full``, the opt-in fused step); ``SpQPFunction`` with its
-diagonal and dense dispatch; and the OptNet layers as ``torch.nn.Module``s
-(``qpth_tpu_torch.nn``). Entry points run on CUDA unless called with
+diagonal and dense dispatch; the OptNet layers as ``torch.nn.Module``s
+(``qpth_tpu_torch.nn``); the hybrid blocked path past the kernels' fit
+(``use_pallas="hybrid"``, and "auto" past it on CUDA); and the unbatched
+solver ``solve_single``. Entry points run on CUDA unless called with
 ``device="cpu"``.
 """
 
@@ -19,6 +21,7 @@ from .config import (KKTSolver, QPSolution, QPSolutionLow, QPSolvers,
                      SolverConfig, SolveStats)
 from . import nn
 from .convert import factors_from_numpy, optnet_params_from_numpy
+from .core.single import solve_single
 from .diagqp import solve_qp_diag, solve_qp_diag_full
 from .ops.kkt import KKTFactors
 from .qp import (QPFunction, prefactor_qp, solve_qp, solve_qp_eq,
@@ -44,4 +47,5 @@ __all__ = [
     "solve_qp_diag_full",
     "solve_qp_eq",
     "solve_qp_full",
+    "solve_single",
 ]

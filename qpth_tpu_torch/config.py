@@ -11,9 +11,12 @@ JAX package's library-only values have no counterpart here:
   kernel A, the fused steps);
 * ``"blocked"``: the Cholesky-factor backend (kernel C's factor, kernel D's
   substitutions; the JAX package's ``pallas_blocked_backend``);
+* ``"hybrid"``: the blocked hybrid backend (kernel A on the diagonal blocks,
+  batched GEMMs for the rest) at every size; ``"auto"``, ``True`` and
+  ``"lanes"`` take it too on CUDA where nineq is past kernel A's fit, and
+  inverse mode keeps Q as its blocked factor where nz is;
 * ``False``, ``"xla"``: ``NotImplementedError`` (no library-only path);
-* ``"hybrid"``, ``"hybrid_xla"``: ``NotImplementedError`` naming their
-  ROADMAP item.
+* ``"hybrid_xla"``: ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations

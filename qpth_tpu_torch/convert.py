@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .ops.hybrid import HybridFactor
 from .ops.kkt import KKTFactors
 from .scaling import Scaling
 
@@ -31,24 +32,36 @@ def _scaling(d, device):
     return Scaling(E=t("E"), RG=t("RG"), RA=t("RA"), c=t("c"))
 
 
+def _hybrid_factor(d, device):
+    if d is None:
+        return None
+
+    def t(v):
+        return None if v is None else torch.as_tensor(v, device=device)
+
+    return HybridFactor([t(g) for g in d["Gs"]], [t(p) for p in d["Ps"]],
+                        int(d["m"]), int(d["block"]))
+
+
 def factors_from_numpy(arrays: dict, device) -> KKTFactors:
     """Build the port's ``KKTFactors`` from numpy arrays keyed by the JAX
     ``KKTFactors`` field names, in inverse or substitution mode, with or
     without equality constraints. ``arrays["scaling"]`` and
     ``arrays["sem_scaling"]``, when present, are dicts keyed by the
-    ``Scaling`` field names (E, RG, RA, c)."""
-    if arrays.get("facQ") is not None:
-        raise NotImplementedError(
-            "factors field 'facQ' (the hybrid path) — ROADMAP.md §1 "
-            "item 13")
+    ``Scaling`` field names (E, RG, RA, c). ``arrays["facQ"]``, Q's blocked
+    factor in the JAX package's hybrid regime, is a dict of the
+    ``HybridFactor`` slots: ``{"Gs": [...], "Ps": [..., None], "m": int,
+    "block": int}``; it becomes the port's ``HybridFactor`` on ``device``."""
     if arrays.get("R") is None or (arrays.get("invQ") is None
-                                   and arrays.get("L_Q") is None):
-        raise ValueError("factors_from_numpy: needs R and one of invQ "
-                         "(inverse mode) or L_Q (substitution mode)")
+                                   and arrays.get("L_Q") is None
+                                   and arrays.get("facQ") is None):
+        raise ValueError("factors_from_numpy: needs R and one of invQ or "
+                         "facQ (inverse mode) or L_Q (substitution mode)")
     fields = {k: None if arrays.get(k) is None
               else torch.as_tensor(arrays[k], device=device)
               for k in _FIELDS}
-    return KKTFactors(**fields,
+    return KKTFactors(**fields, facQ=_hybrid_factor(arrays.get("facQ"),
+                                                    device),
                       scaling=_scaling(arrays.get("scaling"), device),
                       sem_scaling=_scaling(arrays.get("sem_scaling"),
                                            device))

@@ -16,10 +16,11 @@ and without equality constraints, in the branches of the JAX solver:
   equality constraints, ``ipm_step_xfree`` (tracked, coefficient-tracked
   x) or ``ipm_step`` (the direct x recurrence: ``resid_every=1`` or
   ``coeff_x=False``) without. Otherwise the composed step: the backend's
-  factor with its first solve (kernel A, or kernel C under
-  ``use_pallas="blocked"``), then its ``solve2`` (``inv_solve`` or kernel
-  D) for the corrector and each Gondzio correction, with the per-lane
-  adaptive regularization of the fail-soft path.
+  factor with its first solve (kernel A, kernel C under
+  ``use_pallas="blocked"``, or the hybrid backend's blocked factor past
+  kernel A's fit), then its ``solve2`` (``inv_solve``, kernel D or the
+  blocked substitution) for the corrector and each Gondzio correction,
+  with the per-lane adaptive regularization of the fail-soft path.
 * ``xfree``: x carried as recurrence coefficients [w | v | e | c] with
   x = e x0 - c Q^-1 p - Q^-1 G^T w - Q^-1 A^T v, rebuilt at checkpoints.
 

@@ -264,7 +264,7 @@ def inv_solve(Linv, rhs):
     if Linv.shape != (B, m, m):
         raise ValueError(f"inv_solve: Linv must be ({B}, {m}, {m}), "
                          f"got {tuple(Linv.shape)}")
-    if m > THREADS:
+    if Linv.device.type == "cuda" and m > THREADS:
         raise ValueError(f"inv_solve: m = {m} exceeds {THREADS}")
     _check("inv_solve", Linv, (rhs,), B, m, tiles=False)
     if Linv.device.type == "cpu":

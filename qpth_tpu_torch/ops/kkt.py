@@ -14,7 +14,7 @@ Cholesky factors of Q and S11 (substitution mode; the float64 default).
 
 The per-iteration work on T runs in the port's kernels through
 :class:`KKTBackend`; the tensors' device picks kernel or plain version.
-``SolverConfig.use_pallas`` picks one of two backends:
+``SolverConfig.use_pallas`` picks one of three backends:
 
 * :func:`kernels_backend` (``"auto"``, ``True``, ``"lanes"``): T's factor
   is Linv = inv(chol(T)) from kernel A, also in substitution mode, where
@@ -26,13 +26,23 @@ The per-iteration work on T runs in the port's kernels through
   ``pallas_blocked_backend``): T's factor is Lt = chol(T)^T from kernel C
   and every solve on it is kernel D; no fused steps. In substitution mode
   kernel C also factors Q and S11 and kernel D runs every Q and S11 solve.
+* :func:`hybrid_backend` (``"hybrid"``, and ``"auto"`` / ``True``
+  / ``"lanes"`` on CUDA with nineq past kernel A's fit, as the JAX package
+  goes past its VMEM wall): T's factor is the blocked ``HybridFactor``,
+  kernel A on the diagonal blocks and batched GEMMs for the rest; no fused
+  steps.
+
+Past kernel A's fit on CUDA the inverse-mode prefactor keeps Q as the
+blocked factor ``facQ`` instead of Q^-1 (``_q_rep``) and builds the cached
+products by blocked substitution; S11^-1 past the fit is the blocked
+explicit inverse (``_spd_inv``).
 
 Layouts of the factor objects: a backend's per-iteration factor of T is
-Linv (lower, row i of inv(L) in row i) under the kernels backend and Lt
-(upper) under the blocked one. ``KKTFactors.L_Q`` and ``L_S11`` are the
-lower factors L under both backends and in every caller (the backward,
-``solve_qp_eq``): kernel D reads them as they are (``lower=True``), so no
-transposed copy is made.
+Linv (lower, row i of inv(L) in row i) under the kernels backend, Lt
+(upper) under the blocked one and a ``HybridFactor`` under the hybrid one.
+``KKTFactors.L_Q`` and ``L_S11`` are the lower factors L under every
+backend and in every caller (the backward, ``solve_qp_eq``): kernel D reads
+them as they are (``lower=True``), so no transposed copy is made.
 
 Inverse mode forms Q^-1 and S11^-1 by kernel A and one Gram product under
 both backends, as the JAX package does with its lanes kernel.
@@ -51,6 +61,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import cholesky as chol_ops
+from . import hybrid
 from .cuda import kernels
 from .linalg import bmm, bmv, btmv, cho_solve, cho_solve_vec, cholesky
 
@@ -87,8 +98,8 @@ class KKTFactors(NamedTuple):
     GiGT: Optional[torch.Tensor] = None
     #: S11 = A Q^-1 A^T, (b, neq, neq); None unless inverse mode, neq > 0.
     S11: Optional[torch.Tensor] = None
-    #: Blocked factor of Q beyond the kernel fit (hybrid path; not ported:
-    #: always None).
+    #: Blocked factor of Q (``ops.hybrid.HybridFactor``) in place of invQ
+    #: where nz is past kernel A's fit on CUDA (inverse mode); else None.
     facQ: Optional[object] = None
     #: Coordinates of the cached products (scaling.Scaling): identity
     #: values when the equilibration probe kept the factors unscaled.
@@ -98,30 +109,41 @@ class KKTFactors(NamedTuple):
     sem_scaling: Optional[object] = None
 
 
+def past_fit(n: int, dtype, device) -> bool:
+    """Whether an n x n matrix is past kernel A's one-tile fit on a CUDA
+    device (``kernels.fits``), where the hybrid blocked path takes over:
+    the plain versions on the CPU take any size."""
+    return torch.device(device).type == "cuda" and not kernels.fits(n, dtype)
+
+
 def _spd_inv(M):
     """Batched SPD inverse: kernel A gives Linv = inv(chol(M)), then
-    M^-1 = Linv^T Linv by one batched product."""
+    M^-1 = Linv^T Linv by one batched product; past kernel A's fit on CUDA,
+    the blocked inverse (``hybrid.spd_inv_hybrid``)."""
     B, n = M.shape[0], M.shape[-1]
+    if past_fit(n, M.dtype, M.device):
+        return hybrid.spd_inv_hybrid(M)
     zero_d = torch.zeros((B, n), dtype=M.dtype, device=M.device)
     Linv = kernels.factor_inv(M.contiguous(), zero_d)
     return torch.matmul(Linv.transpose(-1, -2), Linv)
 
 
 def _q_rep(Q):
-    """Inverse-mode representation of Q^-1: (invQ, facQ) with the explicit
-    inverse. Beyond kernel A's shared-memory fit the JAX package switches
-    to a blocked factor (the hybrid path), which is not ported."""
-    nz = Q.shape[-1]
-    if Q.device.type == "cuda" and not kernels.fits(nz, Q.dtype):
-        raise NotImplementedError(
-            f"nz = {nz} beyond the kernels' shared-memory fit for {Q.dtype} "
-            "(hybrid path) — ROADMAP.md §1 item 13")
+    """Inverse-mode representation of Q^-1: (invQ, facQ), exactly one set.
+    Within kernel A's fit, the explicit inverse; past it on CUDA, Q's
+    blocked factor (the JAX package's hybrid regime), whose products are
+    blocked substitutions."""
+    if past_fit(Q.shape[-1], Q.dtype, Q.device):
+        return None, hybrid.factor_hybrid(Q)
     return _spd_inv(Q), None
 
 
 def apply_invQ(factors: KKTFactors, v):
-    """Q^-1 v for batched vectors."""
-    return bmv(factors.invQ, v)
+    """Q^-1 v for batched vectors under either inverse-mode
+    representation."""
+    if factors.invQ is not None:
+        return bmv(factors.invQ, v)
+    return hybrid.solve_hybrid(factors.facQ, v)
 
 
 def _bmm_t(XT, Y):
@@ -138,7 +160,8 @@ def _chol_kernel(M):
     if M.device.type == "cuda" and not kernels.chol_fits(n, M.dtype):
         raise NotImplementedError(
             f"n = {n} beyond the Cholesky kernel's shared-memory fit for "
-            f"{M.dtype} (hybrid path) — ROADMAP.md §1 item 13")
+            f"{M.dtype} under use_pallas='blocked'; use_pallas='auto' or "
+            "'hybrid' solves past it")
     return chol_ops.cholesky(M).contiguous()
 
 
@@ -157,7 +180,8 @@ def pre_factor_kkt(Q, G, A=None, *, inverse: bool = True,
     if inverse:
         invQ, facQ = _q_rep(Q)
         L_Q = None
-        invQ_GT = bmm(invQ, GT)                       # (b, nz, nineq)
+        invQ_GT = (hybrid.solve_hybrid_mat(facQ, GT) if facQ is not None
+                   else bmm(invQ, GT))                # (b, nz, nineq)
     else:
         invQ = None
         L_Q = factor(Q)
@@ -170,7 +194,12 @@ def pre_factor_kkt(Q, G, A=None, *, inverse: bool = True,
                           GiGT=G_invQ_GT if inverse else None)
 
     AT = A.transpose(-1, -2)
-    invQ_AT = bmm(invQ, AT) if inverse else cho_solve(L_Q, AT)
+    if not inverse:
+        invQ_AT = cho_solve(L_Q, AT)
+    elif facQ is not None:
+        invQ_AT = hybrid.solve_hybrid_mat(facQ, AT)
+    else:
+        invQ_AT = bmm(invQ, AT)
     S11 = _bmm_t(AT, invQ_AT)                         # (b, neq, neq) SPD
     S21 = _bmm_t(GT, invQ_AT)                         # (b, nineq, neq)
     S21T = S21.transpose(-1, -2)
@@ -196,7 +225,8 @@ class KKTBackend(NamedTuple):
     JAX package's ``KKTBackend``, with the lanes layout gone: ``prepare``
     and ``prepare_vec`` are the identity on batch-major tensors, and the
     fused steps take the cached factors as they are). ``fac`` is the
-    backend's factor of T: Linv (kernels backend) or Lt (blocked)."""
+    backend's factor of T: Linv (kernels backend), Lt (blocked) or a
+    ``HybridFactor`` (hybrid)."""
 
     #: One-time layout preparation of the cached factors.
     prepare: object
@@ -303,6 +333,30 @@ def blocked_backend() -> KKTBackend:
                                                 lower=True))
 
 
+def hybrid_backend() -> KKTBackend:
+    """The backend over the blocked factor (``ops/hybrid.py``) at its
+    default block: ``use_pallas="hybrid"``, and "auto" past kernel A's fit
+    on CUDA. No fused steps: the solver composes each iteration."""
+
+    def factor(R, d):
+        return hybrid.factor_hybrid(R, dinv=1.0 / d)
+
+    def factor_solve(R, d, v):
+        return hybrid.factor_solve_hybrid(R, v, dinv=1.0 / d)
+
+    def factor_solve_rz(R, d, q, z):
+        # The JAX package's substitution w = x + z: (R + D^-1) w = q + z/d,
+        # so no R z product; its float32 cost is measured in PERF.md.
+        fac, w = factor_solve(R, d, q + z / d)
+        return fac, w - z
+
+    return KKTBackend(
+        prepare=_prepare, factor=factor, solve2=hybrid.solve_hybrid,
+        factor_solve=factor_solve, factor_solve_rz=factor_solve_rz,
+        prepare_vec=None, fused_step=None, fused_step_eq=None,
+        fused_step_xfree=None)
+
+
 def no_library_path(use_pallas) -> None:
     """Raise for the JAX package's library-only values of ``use_pallas``."""
     if use_pallas is False or use_pallas == "xla":
@@ -314,33 +368,39 @@ def no_library_path(use_pallas) -> None:
 
 
 def backend_kind(use_pallas) -> str:
-    """"kernels" or "blocked" for a ``SolverConfig.use_pallas`` value;
-    raises ``NotImplementedError`` for the values without a port."""
+    """"kernels", "blocked" or "hybrid" for a ``SolverConfig.use_pallas``
+    value; raises ``NotImplementedError`` for the values without a port."""
     no_library_path(use_pallas)
-    if use_pallas == "hybrid":
-        raise NotImplementedError(
-            "use_pallas='hybrid' (the blocked hybrid path) — ROADMAP.md §1 "
-            "item 13")
     if use_pallas == "hybrid_xla":
         raise NotImplementedError(
             "use_pallas='hybrid_xla' (the tensor-parallel path) — ROADMAP.md "
             "§1 item 22")
-    return "blocked" if use_pallas == "blocked" else "kernels"
+    if use_pallas in ("blocked", "hybrid"):
+        return use_pallas
+    return "kernels"
 
 
 def resolve_backend(use_pallas, dtype, m: int, device) -> KKTBackend:
-    """The backend for a solve with nineq = m. On CUDA, an m beyond the
-    backend's shared-memory fit (``fits`` for kernel A and the fused steps,
-    ``chol_fits`` for kernel C; one m x m tile each, float32 m <= 237 and
-    239, float64 m <= 166 and 168) needs the hybrid blocked path, which is
-    not ported."""
-    blocked = backend_kind(use_pallas) == "blocked"
-    fit = kernels.chol_fits if blocked else kernels.fits
-    if torch.device(device).type == "cuda" and not fit(m, dtype):
-        raise NotImplementedError(
-            f"nineq = {m} beyond the kernels' shared-memory fit for {dtype} "
-            "(hybrid path) — ROADMAP.md §1 item 13")
-    return blocked_backend() if blocked else kernels_backend()
+    """The backend for a solve with nineq = m. ``"hybrid"`` is the blocked
+    backend at every m on both devices. On CUDA, an m past kernel A's
+    shared-memory fit (``fits``: float32 m <= 237, float64 m <= 166) takes
+    it too, as the JAX package's lanes backend does past its VMEM wall;
+    ``"blocked"`` past kernel C's fit (``chol_fits``: 239, 168) raises, as
+    the JAX package's blocked Pallas backend has no path there either."""
+    kind = backend_kind(use_pallas)
+    if kind == "hybrid":
+        return hybrid_backend()
+    if kind == "blocked":
+        if (torch.device(device).type == "cuda"
+                and not kernels.chol_fits(m, dtype)):
+            raise NotImplementedError(
+                f"nineq = {m} beyond kernel C's shared-memory fit for "
+                f"{dtype} under use_pallas='blocked'; use_pallas='auto' or "
+                "'hybrid' solves past it")
+        return blocked_backend()
+    if past_fit(m, dtype, device):
+        return hybrid_backend()
+    return kernels_backend()
 
 
 def fused_step_supported(device, dtype, m: int, nz: int = 0,
@@ -411,7 +471,7 @@ def _q_solvers(factors: KKTFactors, solve2=None):
     """(v -> Q^-1 v, v -> S11^-1 v) under either representation; in
     substitution mode ``solve2`` (a backend's ``q_solve2``) applies the
     lower factors, None meaning ``torch.cholesky_solve``."""
-    if factors.invQ is not None:
+    if factors.invQ is not None or factors.facQ is not None:
         return (lambda v: apply_invQ(factors, v),
                 lambda v: bmv(factors.invS11, v))
     solve = solve2 or cho_solve_vec

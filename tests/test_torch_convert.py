@@ -73,8 +73,12 @@ def test_carried_factors_refusals():
     f = _jax_factors_as_numpy(qpth_tpu.prefactor_qp(
         jnp.asarray(Q), jnp.asarray(G), jnp.asarray(A),
         config=qpth_tpu.SolverConfig(solve_method="inverse")))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        qt.factors_from_numpy(dict(f, facQ=object()), "cpu")
+    # Q's blocked factor (the hybrid regime) stands in for invQ; without
+    # either, and without L_Q, the factors are refused.
+    facQ = dict(Gs=[np.eye(5)[None]], Ps=[None], m=5, block=5)
+    got = qt.factors_from_numpy(
+        dict({k: v for k, v in f.items() if k != "invQ"}, facQ=facQ), "cpu")
+    assert got.invQ is None and got.facQ.m == 5
     with pytest.raises(ValueError, match="needs R"):
         qt.factors_from_numpy({k: v for k, v in f.items() if k != "invQ"},
                               "cpu")

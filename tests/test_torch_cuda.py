@@ -724,3 +724,53 @@ def test_kkt_variants_on_card_match_cpu(cuda, solver):
     on_cpu = qt.solve_qp_full(*a64, config=cfg, device="cpu")
     assert on_card.z.device.type == "cuda"
     assert (on_card.z.cpu() - on_cpu.z).abs().max().item() < 1e-8
+
+
+@pytest.mark.parametrize("dtype,m", [(torch.float32, 238),
+                                     (torch.float32, 300),
+                                     (torch.float64, 167)])
+def test_hybrid_functions_on_card_match_cpu(cuda, dtype, m):
+    """ops/hybrid.py past kernel A's fit: kernel A on the diagonal blocks
+    on the card against the same functions on the CPU (its plain
+    version)."""
+    from qpth_tpu_torch.ops import hybrid
+
+    T = _spd(8, m, dtype, cuda, seed=5)
+    v, _, dinv = _vecs(8, m, dtype, cuda, seed=6)
+    kernels.reset_launches()
+    fac, x = hybrid.factor_solve_hybrid(T, v, dinv=dinv)
+    inv = hybrid.spd_inv_hybrid(T)
+    torch.cuda.synchronize()
+    blk = hybrid.BLOCK
+    assert kernels.LAUNCHES["factor_inv"] == 2 * -(-m // blk)
+    fac_c, x_c = hybrid.factor_solve_hybrid(T.cpu(), v.cpu(),
+                                            dinv=dinv.cpu())
+    assert (x.cpu() - x_c).abs().max().item() <= TOL[dtype] * 10
+    assert ((inv.cpu() - hybrid.spd_inv_hybrid(T.cpu())).abs().max().item()
+            <= TOL[dtype] * 10)
+    for a, b in zip(fac.Gs, fac_c.Gs):
+        assert (a.cpu() - b).abs().max().item() <= TOL[dtype] * 10
+
+
+def test_auto_past_the_fit_on_card_matches_cpu(cuda):
+    """"auto" past kernel A's fit (float64 nz = nineq = 170, 4 equality
+    rows): the hybrid backend and Q's blocked factor on the card, kernel
+    A's plain version within no fit on the CPU; z and the iterations."""
+    r = np.random.RandomState(4)
+    B, n, neq = 4, 170, 4
+    L = r.rand(B, n, n)
+    Q = L @ L.transpose(0, 2, 1) + 0.05 * n * np.eye(n)
+    G = r.randn(B, n, n) / np.sqrt(n)
+    z0 = r.randn(n)
+    h = G @ z0 + r.rand(B, n)
+    A = r.randn(B, neq, n) / np.sqrt(n)
+    args = [torch.tensor(v) for v in (Q, r.randn(B, n), G, h, A, A @ z0)]
+    cfg = qt.SolverConfig(eps=1e-9, refine_steps=0, solve_method="inverse",
+                          check_Q_spd=False)
+    kernels.reset_launches()
+    on_card = qt.solve_qp_full(*args, config=cfg)
+    assert kernels.LAUNCHES["factor_inv"] > 0
+    assert kernels.LAUNCHES["ipm_step_eq"] == 0
+    on_cpu = qt.solve_qp_full(*args, config=cfg, device="cpu")
+    assert int(on_card.stats.iterations) == int(on_cpu.stats.iterations)
+    assert (on_card.z.cpu() - on_cpu.z).abs().max().item() < 1e-8

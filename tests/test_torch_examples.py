@@ -1,0 +1,194 @@
+"""The torch example scripts (``examples/torch_cls_layer.py``,
+``examples/torch_sudoku.py``) against the JAX scripts they follow
+(``examples/cls_layer.py``, ``examples/sudoku.py``), on the CPU at small
+sizes. The port's model takes the Flax model's initial parameters
+(``optnet_params_from_numpy``) and the scripts' own data; the first step's
+loss, gradients and Adam update then agree with the JAX script's step
+(``jax.value_and_grad`` and ``optax.adam``): float64 to 1e-8, and one
+float32 classifier step to 5e-4 of each gradient's largest entry (the
+float32 gradient tolerance of ``tests/test_torch_grads_f32.py``). A few
+steps of each script then lower its loss on the whole data set."""
+
+import importlib.util
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import numpy.testing as npt
+import optax
+import pytest
+import torch
+
+import qpth_tpu_torch as qt
+from qpth_tpu.nn import OptNetClassifier as FlaxClassifier
+from qpth_tpu.nn import OptNetSudoku as FlaxSudoku
+
+torch.set_num_threads(1)
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                        "examples")
+CLS = dict(n_features=10, n_hidden=16, n_cls=4, n_ineq=8)
+
+
+def _script(name):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(EXAMPLES, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _close(got, want, tol, err_msg=""):
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max(initial=0.0)), 1.0)
+    npt.assert_allclose(np.asarray(got), want, rtol=tol, atol=tol * scale,
+                        err_msg=err_msg)
+
+
+def _cast(tree, dtype):
+    return jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), tree)
+
+
+def _cls_pairs(model):
+    """(port tensor, Flax path) for every classifier parameter; Dense
+    kernels are the transposes of the Linear weights."""
+    return [(model.fc1.weight, ("Dense_0", "kernel"), True),
+            (model.fc1.bias, ("Dense_0", "bias"), False),
+            (model.fc2.weight, ("Dense_1", "kernel"), True),
+            (model.fc2.bias, ("Dense_1", "bias"), False)] + [
+        (getattr(model, k), (k,), False) for k in ("L", "G", "z0", "s0")]
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _first_step(flax_model, flax_loss, model, script, x, y, lr, pairs,
+                np_dtype, tol):
+    """One step of each side from the same parameters: loss, gradients
+    and the parameters after the Adam update."""
+    params = _cast(flax_model.init(jax.random.PRNGKey(0), jnp.asarray(x)),
+                   np_dtype)
+    qt.optnet_params_from_numpy(
+        model, jax.tree_util.tree_map(np.asarray, params))
+    loss_j, g_j = jax.value_and_grad(flax_loss)(params)
+    opt_j = optax.adam(lr)
+    upd, _ = opt_j.update(g_j, opt_j.init(params))
+    new_j = optax.apply_updates(params, upd)
+
+    opt = torch.optim.Adam(model.parameters(), lr=lr)
+    dt = next(model.parameters()).dtype
+    xt = torch.tensor(x, dtype=dt)
+    yt = torch.tensor(y, dtype=dt) if y.dtype.kind == "f" else torch.tensor(y)
+    loss_t = script.loss_fn(model, xt, yt)
+    loss_t.backward()
+    _close(float(loss_t.detach()), float(loss_j), tol, "loss")
+    for t, path, tr in pairs:
+        g = _get(g_j["params"], path)
+        _close(t.grad.numpy(), np.asarray(g).T if tr else g, tol,
+               f"gradient {path}")
+    opt.step()
+    for t, path, tr in pairs:
+        w = _get(new_j["params"], path)
+        _close(t.detach().numpy(), np.asarray(w).T if tr else w, tol,
+               f"updated {path}")
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_cls_first_step_matches_jax_script(dtype):
+    script = _script("torch_cls_layer")
+    np_dtype = np.float64 if dtype == "float64" else np.float32
+    tol = 1e-8 if dtype == "float64" else 5e-4
+    rng, x_all, y_all = script.make_data(CLS["n_features"], CLS["n_cls"],
+                                         12, seed=0)
+    idx = rng.choice(len(x_all), 12, replace=False)
+    x, y = x_all[idx].astype(np_dtype), y_all[idx]
+    flax_model = FlaxClassifier(**CLS)
+
+    def flax_loss(params):
+        logp = flax_model.apply(params, jnp.asarray(x))
+        return -jnp.mean(logp[jnp.arange(x.shape[0]), y])
+
+    model = qt.nn.OptNetClassifier(**CLS, device="cpu",
+                                   dtype=getattr(torch, dtype))
+    _first_step(flax_model, flax_loss, model, script, x, y, 1e-3,
+                _cls_pairs(model), np_dtype, tol)
+
+
+def test_sudoku_first_step_matches_jax_script():
+    script = _script("torch_sudoku")
+    rng = np.random.RandomState(0)
+    puzzles, solutions = script.gen_sudoku_data(rng, 16)
+    idx = rng.choice(16, 8, replace=False)
+    x, y = puzzles[idx], solutions[idx]
+    flax_model = FlaxSudoku(n=2, n_eq=40)
+
+    def flax_loss(params):
+        return jnp.mean((flax_model.apply(params, jnp.asarray(x)) - y) ** 2)
+
+    model = qt.nn.OptNetSudoku(n=2, n_eq=40, device="cpu",
+                               dtype=torch.float64)
+    _first_step(flax_model, flax_loss, model, script, x, y, 0.02,
+                [(model.A, ("A",), False)], np.float64, 1e-8)
+
+
+def test_sudoku_data_is_the_jax_scripts():
+    """``gen_sudoku_data`` is a copy: the same boards from the same seed."""
+    import sys
+
+    sys.path.insert(0, EXAMPLES)
+    try:
+        import sudoku as jax_sudoku
+    finally:
+        sys.path.remove(EXAMPLES)
+    got = _script("torch_sudoku").gen_sudoku_data(
+        np.random.RandomState(3), 10)
+    want = jax_sudoku.gen_sudoku_data(np.random.RandomState(3), 10)
+    for a, b in zip(got, want):
+        npt.assert_array_equal(a, b)
+
+
+def test_cls_script_lowers_its_loss():
+    script = _script("torch_cls_layer")
+    rng, x_all, y_all = script.make_data(CLS["n_features"], CLS["n_cls"],
+                                         32, seed=0)
+    model = qt.nn.OptNetClassifier(
+        **CLS, device="cpu", generator=torch.Generator().manual_seed(0))
+    xt, yt = torch.tensor(x_all), torch.tensor(y_all)
+    with torch.no_grad():
+        before = float(script.loss_fn(model, xt, yt))
+    opt = torch.optim.Adam(model.parameters(), lr=1e-2)
+    losses = script.train(model, opt, rng, x_all, y_all, 32, 15, log=None)
+    with torch.no_grad():
+        after = float(script.loss_fn(model, xt, yt))
+    assert len(losses) == 15 and all(np.isfinite(losses))
+    assert after < before, (before, after)
+
+
+def test_sudoku_script_lowers_its_loss():
+    script = _script("torch_sudoku")
+    rng = np.random.RandomState(0)
+    puzzles, solutions = script.gen_sudoku_data(rng, 16)
+    model = qt.nn.OptNetSudoku(n=2, n_eq=40, device="cpu",
+                               dtype=torch.float64,
+                               generator=torch.Generator().manual_seed(0))
+    xt, yt = torch.tensor(puzzles), torch.tensor(solutions)
+    with torch.no_grad():
+        before = float(script.loss_fn(model, xt, yt))
+    opt = torch.optim.Adam(model.parameters(), lr=0.02)
+    losses = script.train(model, opt, rng, puzzles, solutions, 8, 8,
+                          log=None)
+    with torch.no_grad():
+        after = float(script.loss_fn(model, xt, yt))
+    assert len(losses) == 8 and all(np.isfinite(losses))
+    assert after < before, (before, after)
+
+
+@pytest.mark.parametrize("name", ["torch_cls_layer", "torch_sudoku"])
+def test_scripts_need_cuda_unless_asked_for_the_cpu(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _script(name).main(["--steps", "1"])

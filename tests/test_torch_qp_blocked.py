@@ -24,6 +24,7 @@ import torch
 
 import qpth_tpu
 import qpth_tpu_torch as qt
+from qpth_tpu_torch.ops import hybrid
 from qpth_tpu_torch.ops import kkt as kkt_ops
 from qpth_tpu_torch.ops.cuda import kernels
 
@@ -224,7 +225,7 @@ def test_kernels_backend_values_are_the_default(value):
 
 @pytest.mark.parametrize("value,match", [
     (False, "no library-only path"), ("xla", "no library-only path"),
-    ("hybrid", "item 13"), ("hybrid_xla", "item 22")])
+    ("hybrid_xla", "item 22")])
 def test_unported_values_raise(value, match):
     cfg = qt.SolverConfig(use_pallas=value)
     with pytest.raises(NotImplementedError, match=match):
@@ -265,14 +266,14 @@ def test_blocked_backend_has_no_fused_step_and_its_own_fit():
     be = kkt_ops.resolve_backend("blocked", torch.float32, 200, "cuda")
     assert be.fused_step is None and be.fused_step_xfree is None
     assert be.q_solve2 is not None
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="solves past it"):
         kkt_ops.resolve_backend("blocked", torch.float32, 240, "cuda")
     # nineq = 238: kernel C's one tile and 4 m-vectors fit (float32 m <= 239),
     # the kernels backend's tile, 8 m-vectors and reduction scratch do not
-    # (m <= 237).
+    # (m <= 237): "auto" takes the hybrid backend there.
     kkt_ops.resolve_backend("blocked", torch.float32, 238, "cuda")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        kkt_ops.resolve_backend("auto", torch.float32, 238, "cuda")
+    be = kkt_ops.resolve_backend("auto", torch.float32, 238, "cuda")
+    assert be.fused_step is None and be.solve2 is hybrid.solve_hybrid
 
 
 def test_diagonal_tier_treats_blocked_as_auto():

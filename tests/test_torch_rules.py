@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import qpth_tpu_torch as qt
+from qpth_tpu_torch.ops import hybrid
 from qpth_tpu_torch.ops import kkt as kkt_ops
 from qpth_tpu_torch.ops.cuda import kernels
 
@@ -41,6 +42,7 @@ def _banned(name: str) -> bool:
 def test_port_imports_no_jax():
     files = sorted((REPO / "qpth_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files += sorted((REPO / "examples").glob("torch_*.py"))
     assert len(files) > 10
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
@@ -180,7 +182,7 @@ def test_fused_step_supported_follows_device():
 def test_kernels_backend_takes_widths_of_one_tile(m):
     """Widths between the old two-tile fit (168) and the one-tile fit (237)
     route to the kernels backend and the fused steps on CUDA in float32,
-    and do not raise item 13's NotImplementedError."""
+    not to the hybrid backend."""
     backend = kkt_ops.resolve_backend("auto", torch.float32, m, "cuda")
     assert backend.fused_step is not None
     assert kkt_ops.fused_step_supported("cuda", torch.float32, m)
@@ -224,15 +226,16 @@ def _matches_jax(Q, p, G, h, config, z):
 @pytest.mark.parametrize("case", list(CASES))
 def test_unported_branch_raises(case):
     """Branches that raised ``NotImplementedError`` until their ROADMAP item
-    was ported (items 9, 11, 12, 14) now run: each case solves to a finite
-    solution equal to the JAX package's (float64, 1e-8). ``beyond_fit``
-    (the hybrid path, item 13) still raises."""
+    was ported (items 9, 11, 12, 14, 13) now run: each case solves to a
+    finite solution equal to the JAX package's (float64, 1e-8).
+    ``beyond_fit`` (item 13): past kernel A's fit "auto" takes the hybrid
+    backend instead of raising."""
     spec = CASES[case]
     if spec.get("fit"):
         # The shared-memory fit is checked on CUDA only; the predicate is
         # device-independent, so ask for the CUDA backend directly.
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            kkt_ops.resolve_backend("auto", torch.float32, 238, "cuda")
+        be = kkt_ops.resolve_backend("auto", torch.float32, 238, "cuda")
+        assert be.fused_step is None and be.solve2 is hybrid.solve_hybrid
         return
     Q, p, G, h = _qp(torch.float64)
     sol = qt.solve_qp_full(Q, p, G, h, config=spec["config"], device="cpu")
