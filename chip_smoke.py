@@ -41,6 +41,16 @@ through the kernels at full width (B = 4096, float32 unless said):
   functions on the card against the same functions on the CPU; phase 10
   times (a) and (b), sweeps the block size and splits one (a)
   forward+backward by kernel class;
+* path 9: the banded and general structured tiers (kernel A on every
+  block-Thomas stage, kernel 5 on M with equality rows): (a)
+  benchmarks/prof_banded.py's chain at nb = 16, bs = 32 with 0 and 32
+  equality rows, ``solve_qp_banded_full`` and ``solve_qp_banded``, against
+  the card's float64 solve and that against the dense port; (b)
+  benchmarks/prof_mpc_banded.py's receding horizon, cold and warm
+  started; (c) benchmarks/prof_general.py's scrambled band at n = 512
+  through ``SpQPFunction`` (the general tier), (c') a box pattern (the
+  banded tier); (d) float64 card against CPU; (e) refinement at eps =
+  1e-8 on (c); and the torch MPC and graph-QP scripts;
 * D1 (ROADMAP §3): kernel A's and fused step B's float32 error against
   float64 on the inputs in tests/data_torch_d1.npz;
 * ``solve_single`` card against CPU, and the torch example scripts for 5
@@ -802,6 +812,637 @@ def path8_timings(torch, qt, kernels, dev, data, host_ms, report, spread):
     return out
 
 
+
+# ---- path 9: the banded and general structured tiers ----
+NB9, BS9, NEQ9 = 16, 32, 32   # benchmarks/prof_banded.py's chain at nz = 512
+N9B, BS9B = 256, 16           # benchmarks/prof_mpc_banded.py's defaults
+STEPS9B, DRIFT9B = 8, 0.02
+N9C, W9C = 512, 8             # benchmarks/prof_general.py, n = 512 (w = 8)
+N9_BOX = 512                  # (c') diagonal Q with box rows [I; -I]
+STAGE_M9 = (3, 16, 32)        # stage widths: examples/mpc.py, (b), (a)
+
+
+def make_chain(torch, dev, nbatch, nb, bs, neq, seed=0, coupling=0.35):
+    """benchmarks/prof_banded.py:40-56's ``make_chain`` draws (float64
+    numpy, in its order); the block products are formed on the card in
+    float64. Returns (Qd, Qe, p, g, h, A, b), float64 on ``dev``."""
+    rng = np.random.RandomState(seed)
+    n = nb * bs
+    Ld = np.tril(rng.randn(nbatch, nb, bs, bs) * 0.4) + np.eye(bs) * 1.8
+    Le = coupling * rng.randn(nbatch, nb - 1, bs, bs)
+    g = np.where(np.abs(rng.randn(nbatch, n)) < 0.3, 0.7,
+                 rng.randn(nbatch, n))
+    z0 = rng.randn(nbatch, n)
+    h = g * z0 + rng.rand(nbatch, n) + 0.2
+    p = rng.randn(nbatch, n)
+    A = rng.randn(neq, n) / np.sqrt(n)
+    b = z0 @ A.T
+    with torch.no_grad():
+        Ld, Le = (torch.from_numpy(v).to(dev) for v in (Ld, Le))
+        Qd = Ld @ Ld.transpose(-1, -2)
+        Qd[:, 1:] += Le @ Le.transpose(-1, -2)
+        Qe = Le @ Ld[:, :-1].transpose(-1, -2)
+    return [Qd, Qe] + [torch.from_numpy(v).to(dev) for v in (p, g, h, A, b)]
+
+
+def make_mpc_chain(torch, dev, nbatch, n, bs, steps, drift, seed=0):
+    """benchmarks/prof_mpc_banded.py:51-63's draws (float32 numpy; Qd's
+    product on the card in full float32), then its drift sequence
+    (:78-79). Returns ((Qd, Qe, p, g, h), drifts), float32 on ``dev``."""
+    from qpth_tpu_torch.ops.linalg import full_precision
+
+    npr = np.random.RandomState(seed)
+    nb = n // bs
+    Ld = np.tril(npr.rand(nbatch, nb, bs, bs).astype(np.float32) * 0.3) \
+        + np.eye(bs, dtype=np.float32)
+    Qe = (0.1 * npr.randn(nbatch, nb - 1, bs, bs)).astype(np.float32)
+    g = np.where(np.abs(npr.randn(nbatch, n)) < 0.3, 0.7,
+                 npr.randn(nbatch, n)).astype(np.float32)
+    z0 = npr.randn(nbatch, n).astype(np.float32)
+    h = (g * z0 + npr.rand(nbatch, n) + 0.2).astype(np.float32)
+    p = npr.randn(nbatch, n).astype(np.float32)
+    drifts = [torch.from_numpy(
+        drift * npr.randn(nbatch, n).astype(np.float32)).to(dev)
+        for _ in range(steps)]
+    with torch.no_grad(), full_precision():
+        Ld = torch.from_numpy(Ld).to(dev)
+        Qd = Ld @ Ld.transpose(-1, -2) + torch.eye(bs, device=dev)
+    return [Qd] + [torch.from_numpy(v).to(dev) for v in (Qe, p, g, h)], \
+        drifts
+
+
+def scrambled_pattern(rng, n, w):
+    """benchmarks/prof_general.py:49-58's pattern draws: a banded Q of
+    width w under a random permutation, and two-entry G rows."""
+    perm0 = rng.permutation(n)
+    qi = [(i, j) for i in range(n) for j in range(n) if abs(i - j) <= w]
+    Qi = np.array([(perm0[i], perm0[j]) for (i, j) in qi]).T
+    gi = []
+    for r in range(n):
+        c = rng.randint(0, n - 1)
+        gi.append((r, perm0[c]))
+        gi.append((r, perm0[c + 1]))
+    return Qi, np.array(gi).T
+
+
+def make_scrambled(nbatch, n, w, seed=0):
+    """benchmarks/prof_general.py:49-75's ``make_scrambled`` draws
+    (float32 numpy, RandomState(seed) as its ``main`` seeds it), without
+    its dense Q and G: h = G z0 + U(0, 1) + 0.2 is formed from the
+    pattern (two nonzeros a row, so the sum is the dense one's). Returns
+    (Qi, Qv, Gi, Gv, p, h)."""
+    rng = np.random.RandomState(seed)
+    Qi, Gi = scrambled_pattern(rng, n, w)
+    Qv = np.zeros((nbatch, Qi.shape[1]), np.float32)
+    look = {}
+    for k, (i, j) in enumerate(zip(*Qi)):
+        if i == j:
+            Qv[:, k] = 2.0 * w + 1 + rng.rand(nbatch)
+        elif (int(j), int(i)) in look:
+            Qv[:, k] = Qv[:, look[(int(j), int(i))]]
+        else:
+            Qv[:, k] = rng.randn(nbatch) * 0.3
+            look[(int(i), int(j))] = k
+    Gv = rng.randn(nbatch, Gi.shape[1]).astype(np.float32)
+    p = rng.randn(nbatch, n).astype(np.float32)
+    z0 = rng.randn(nbatch, n)
+    Gz = np.zeros((n, nbatch))
+    np.add.at(Gz, Gi[0], (Gv * z0[:, Gi[1]]).T)
+    h = (Gz.T + rng.rand(nbatch, n) + 0.2).astype(np.float32)
+    return Qi, Qv, Gi, Gv, p, h
+
+
+def general_stage_width(qt):
+    """The block size the general planner picks for (c)'s pattern."""
+    Qi, Gi = scrambled_pattern(np.random.RandomState(0), N9C, W9C)
+    f = qt.SpQPFunction(Qi, (N9C, N9C), Gi, (N9C, N9C),
+                        np.zeros((2, 0), int), (0, N9C), device="cpu")
+    check(f.structure == "general", f"path 9c plans {f.structure}")
+    return f._band[1]
+
+
+def phase_9g(torch, qt, kernels, dev):
+    """Path 9: the banded and general structured tiers at B = 4096, float32
+    defaults unless said. Returns (launches, facts, data): the counts and
+    readings of every case, and the tensors phase 10 times."""
+    from qpth_tpu_torch.core import banded as band_core
+
+    launches, facts = {}, {}
+    cfg = qt.SolverConfig(check_Q_spd=False)
+    # The float64 yardstick: the card's solve of the float32 data, loop
+    # alone (eps = 1e-9, refine_steps=0), on N_F64_CARD lanes.
+    cfg64 = qt.SolverConfig(check_Q_spd=False, eps=1e-9, refine_steps=0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    chain64 = make_chain(torch, dev, B, NB9, BS9, NEQ9)
+    chain = [v.float() for v in chain64]
+    print(f"# phase 9g (path 9a): prof_banded chain draws B={B} nb={NB9} "
+          f"bs={BS9} (n={NB9 * BS9}) neq={NEQ9} made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def forward(tag, fn, expect):
+        """One forward with the counts set to 0 just before and read just
+        after; kernel A's launches by dims; every output finite."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with kernel_a_dims(kernels) as dims:
+            t_ = time.perf_counter()
+            sol = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t_) * 1e3
+        fwd = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        for name_ in ("z", "lam", "s", "nu"):
+            check(bool(torch.isfinite(getattr(sol, name_)).all()),
+                  f"{tag}: {name_} not finite")
+        for k in expect:
+            check(fwd.get(k, 0) > 0, f"{tag}: {k} did not launch")
+        print(f"# {tag}: forward {wall:.1f} ms (first call), iterations "
+              f"{int(sol.stats.iterations)}, launches {fwd}, kernel A by "
+              f"dims {dims_summary(dims)}")
+        return sol, fwd, dims_summary(dims)
+
+    def backward(tag, fn, leaves, expect):
+        """One forward+backward (counts as above); lanes with a non-finite
+        gradient among the batched leaves at most B/200."""
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        z = fn()
+        (z * z).sum().backward()
+        torch.cuda.synchronize()
+        fb = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        bad = torch.zeros(B, dtype=torch.bool, device=dev)
+        for v in leaves:
+            check(v.grad is not None, f"{tag}: a leaf got no gradient")
+            if v.shape[0] == B:
+                bad |= ~torch.isfinite(v.grad.reshape(B, -1)).all(dim=1)
+            else:
+                check(bool(torch.isfinite(v.grad).all()),
+                      f"{tag}: a shared gradient is not finite")
+        n_bad = int(bad.sum())
+        for k in expect:
+            check(fb.get(k, 0) > 0, f"{tag}: {k} did not launch")
+        print(f"# {tag}: forward+backward launches {fb}; lanes with a "
+              f"non-finite gradient {n_bad} of {B}")
+        check(n_bad <= LANES_OFF8, f"{tag}: {n_bad} lanes with a non-finite "
+              "gradient")
+        return fb, n_bad
+
+    def against_f64(tag, z32, z64):
+        err = lane_rel(z32[:z64.shape[0]], z64)
+        med = float(err.median())
+        print(f"# {tag}: f32 vs f64 (card) over {z64.shape[0]} lanes: median "
+              f"relative z error {med:.3e}, p90 {float(err.quantile(0.9)):.3e}"
+              f", max {float(err.max()):.3e}")
+        check(med <= 2e-2, f"{tag}: f32 median relative error {med:.3e} > "
+              "2e-2")
+        return med
+
+    # (a) the chain, neq = 0 and 32: solve_qp_banded_full, then
+    # solve_qp_banded forward+backward; z against the card's float64 banded
+    # solve, and that solve against the dense port on the densified problem
+    # (nz = 512: past kernel A's fit, the hybrid path) in float64.
+    for neq in (0, NEQ9):
+        key = f"a_neq{neq}"
+        tag = f"phase 9g (path 9a): banded f32 B={B} n={NB9 * BS9} neq={neq}"
+        args = chain[:5] + (chain[5:] if neq else [])
+        expect = ("factor_inv",) + (("inv_solve",) if neq else ())
+        sol, fwd, dims = forward(tag, lambda: qt.solve_qp_banded_full(
+            *args, config=cfg), expect)
+        its_ = int(sol.stats.iterations)
+        a64 = [v[:N_F64_CARD] if v.shape[0] == B else v
+               for v in chain64[:5] + (chain64[5:] if neq else [])]
+        with torch.no_grad():
+            ref = qt.solve_qp_banded_full(*a64, config=cfg64)
+        med = against_f64(tag, sol.z, ref.z)
+        # The float64 banded solve against the dense port on 64 lanes.
+        L_ = N_F64_CPU
+        Qd, Qe = a64[0][:L_], a64[1][:L_]
+        n_ = NB9 * BS9
+        Qden = torch.zeros(L_, n_, n_, dtype=torch.float64, device=dev)
+        for i in range(NB9):
+            s_ = slice(i * BS9, (i + 1) * BS9)
+            Qden[:, s_, s_] = Qd[:, i]
+            if i + 1 < NB9:
+                t_ = slice((i + 1) * BS9, (i + 2) * BS9)
+                Qden[:, t_, s_] = Qe[:, i]
+                Qden[:, s_, t_] = Qe[:, i].transpose(-1, -2)
+        Gden = torch.diag_embed(a64[3][:L_])
+        dense = [Qden, a64[2][:L_], Gden, a64[4][:L_]] + (
+            [a64[5], a64[6][:L_]] if neq else [])
+        with torch.no_grad():
+            zb = qt.solve_qp_banded_full(
+                *[v[:L_] if v.shape[0] == N_F64_CARD else v for v in a64],
+                config=qt.SolverConfig(check_Q_spd=False)).z
+            zd = qt.solve_qp_full(*dense, config=qt.SolverConfig(
+                check_Q_spd=False)).z
+        e_dense = rel(zb, zd)
+        print(f"# {tag}: f64 banded vs the dense port (hybrid path, n = "
+              f"{n_} past the fit) over {L_} lanes: z {e_dense:.3e}")
+        check(e_dense <= 1e-8, f"{tag}: f64 banded vs dense {e_dense:.3e}")
+        del Qden, Gden, dense, zb, zd, ref
+        leaves = [v.clone().requires_grad_(True) for v in args]
+        fb, n_bad = backward(tag, lambda: qt.solve_qp_banded(
+            *leaves, config=cfg), leaves, expect)
+        launches[key] = dict(forward=fwd, forward_backward=fb)
+        facts[key] = dict(iterations=its_, z_err_median=med,
+                          f64_vs_dense=e_dense, kernel_a_dims=dims,
+                          nonfinite_grad_lanes=n_bad)
+        del leaves, sol
+    torch.cuda.empty_cache()
+
+    # (b) receding-horizon MPC on the banded tier: cold and warm started
+    # over the same drift sequence; iterations and wall per step.
+    mpc, drifts = make_mpc_chain(torch, dev, B, N9B, BS9B, STEPS9B, DRIFT9B)
+    Qd_b, Qe_b, p_b, g_b, h_b = mpc
+    arms = {}
+    for arm in ("cold", "warm"):
+        pp, init, its_, ms_, zs = p_b, None, [], [], []
+        kernels.reset_launches()
+        for step in range(STEPS9B):
+            torch.cuda.synchronize()
+            t_ = time.perf_counter()
+            sol = qt.solve_qp_banded_full(Qd_b, Qe_b, pp, g_b, h_b,
+                                          config=cfg, init=init)
+            its_.append(int(sol.stats.iterations))
+            ms_.append((time.perf_counter() - t_) * 1e3)
+            check(bool(torch.isfinite(sol.z).all()),
+                  f"path 9b {arm} step {step}: z not finite")
+            zs.append(sol.z)
+            if arm == "warm":
+                init = (sol.z, sol.s, sol.lam, None)
+            pp = pp + drifts[step]
+        arms[arm] = dict(iterations=its_, ms=ms_, z=zs,
+                         launches={k: v for k, v in kernels.LAUNCHES.items()
+                                   if v})
+    diff = max(float(lane_rel(a, b_.double()).median())
+               for a, b_ in zip(arms["warm"]["z"], arms["cold"]["z"]))
+    for arm in ("cold", "warm"):
+        print(f"# phase 9g (path 9b): MPC B={B} n={N9B} bs={BS9B}, {arm}: "
+              f"iterations per step {arms[arm]['iterations']}, ms per step "
+              + ", ".join(f"{v:.1f}" for v in arms[arm]["ms"])
+              + f"; launches over the {STEPS9B} steps {arms[arm]['launches']}")
+    print(f"# phase 9g (path 9b): warm against cold z, largest per-step "
+          f"median relative difference {diff:.3e}")
+    check(diff <= 2e-2, "path 9b: warm and cold solves part")
+    check(arms["cold"]["launches"].get("factor_inv", 0) > 0,
+          "path 9b: kernel A did not launch")
+    launches["b"] = {arm: arms[arm]["launches"] for arm in arms}
+    facts["b"] = dict(warm_cold_z_diff=diff, **{
+        arm: dict(iterations=arms[arm]["iterations"], ms=arms[arm]["ms"])
+        for arm in arms})
+    del arms, mpc, drifts, sol
+    torch.cuda.empty_cache()
+
+    # (c) the general tier: the scrambled band through SpQPFunction
+    # ("auto" picks general in float32 at n >= GENERAL_F32_MIN_N).
+    t0 = time.perf_counter()
+    Qi, Qv, Gi, Gv, p_c, h_c = make_scrambled(B, N9C, W9C)
+    f = qt.SpQPFunction(Qi, (N9C, N9C), Gi, (N9C, N9C),
+                        np.zeros((2, 0), int), (0, N9C), config=cfg)
+    vals = [torch.from_numpy(v).to(dev) for v in (Qv, p_c, Gv, h_c)]
+    empty = torch.zeros(B, 0, device=dev)
+    check(f.structure == "general" and f._tier(vals[0]) == "general",
+          f"path 9c: {f.structure} / {f._tier(vals[0])}")
+    _, bs_c, nb_c, _ = f._band
+    print(f"# phase 9g (path 9c): prof_general make_scrambled B={B} n={N9C} "
+          f"w={W9C}: structure {f.structure}, bs={bs_c} nb={nb_c} after RCM; "
+          f"draws {time.perf_counter() - t0:.1f} s")
+    tag = f"phase 9g (path 9c): general f32 B={B} n={N9C}"
+    sol_c, fwd, dims = forward(tag, lambda: f.solve_full(*vals, empty, empty),
+                               ("factor_inv",))
+    f64 = qt.SpQPFunction(Qi, (N9C, N9C), Gi, (N9C, N9C),
+                          np.zeros((2, 0), int), (0, N9C), config=cfg64)
+    with torch.no_grad():
+        ref_c = f64.solve_full(*(v[:N_F64_CARD].double() for v in vals),
+                               empty[:N_F64_CARD].double(),
+                               empty[:N_F64_CARD].double())
+    print(f"# {tag}: f64 yardstick score max "
+          f"{float(ref_c.stats.best_resids.max()):.3e} median "
+          f"{float(ref_c.stats.best_resids.median()):.3e}, iterations "
+          f"{int(ref_c.stats.iterations)}")
+    med_c = against_f64(tag, sol_c.z, ref_c.z)
+    e_unref = lane_rel(sol_c.z[:N_F64_CARD], ref_c.z)
+    leaves = [v.clone().requires_grad_(True) for v in vals]
+    fb, n_bad = backward(tag, lambda: f(*leaves, empty, empty), leaves,
+                         ("factor_inv",))
+    launches["c"] = dict(forward=fwd, forward_backward=fb)
+    facts["c"] = dict(iterations=int(sol_c.stats.iterations),
+                      z_err_median=med_c, bs=bs_c, nb=nb_c,
+                      kernel_a_dims=dims, nonfinite_grad_lanes=n_bad)
+    del leaves
+
+    # (e) refinement at eps = 1e-8 on (c) (the general tier's float32
+    # plateau breaker): the refined median >= 100x and the p90 >= 10x below
+    # the unrefined ones, as path 7 gates them; the steps are counted.
+    n_fac = []
+    fac_orig = band_core._Band.factor
+
+    def fac_counted(self, d):
+        n_fac.append(1)
+        return fac_orig(self, d)
+
+    cfg_e = qt.SolverConfig(check_Q_spd=False, eps=1e-8)
+    band_core._Band.factor = fac_counted
+    try:
+        f_e = qt.SpQPFunction(Qi, (N9C, N9C), Gi, (N9C, N9C),
+                              np.zeros((2, 0), int), (0, N9C), config=cfg_e)
+        sol_e, fwd_e, _ = forward(f"{tag} eps=1e-8 (refined)",
+                                  lambda: f_e.solve_full(*vals, empty, empty),
+                                  ("factor_inv",))
+        n_ref = len(n_fac)
+        n_fac.clear()
+        f_e0 = qt.SpQPFunction(
+            Qi, (N9C, N9C), Gi, (N9C, N9C), np.zeros((2, 0), int), (0, N9C),
+            config=dataclasses.replace(cfg_e, refine_steps=0))
+        its_e0 = int(f_e0.solve_full(*vals, empty, empty).stats.iterations)
+        steps_e = n_ref - len(n_fac)
+    finally:
+        band_core._Band.factor = fac_orig
+    e_ref = lane_rel(sol_e.z[:N_F64_CARD], ref_c.z)
+    q = {k: dict(median=float(e.median()), p90=float(e.quantile(0.9)),
+                 max=float(e.max())) for k, e in (("refined", e_ref),
+                                                  ("unrefined", e_unref))}
+    print(f"# {tag} eps=1e-8: refinement steps {steps_e} (loop iterations "
+          f"{int(sol_e.stats.iterations)}, {its_e0} without refinement); "
+          f"score max {float(sol_e.stats.best_resids.max()):.3e}; z error "
+          f"over {N_F64_CARD} lanes: refined median "
+          f"{q['refined']['median']:.3e} p90 {q['refined']['p90']:.3e} max "
+          f"{q['refined']['max']:.3e}, unrefined median "
+          f"{q['unrefined']['median']:.3e} p90 {q['unrefined']['p90']:.3e}")
+    check(q["unrefined"]["median"] >= 100.0 * q["refined"]["median"],
+          "path 9e: refinement gained less than 100x on the median")
+    check(q["unrefined"]["p90"] >= 10.0 * q["refined"]["p90"],
+          "path 9e: refinement gained less than 10x on the p90")
+    launches["e"] = dict(forward=fwd_e)
+    facts["e"] = dict(refinement_steps=steps_e, z_err=q,
+                      iterations=int(sol_e.stats.iterations))
+    del sol_e, f_e, f_e0
+
+    # (c') the box pattern (diagonal Q, G = [I; -I]) through SpQPFunction:
+    # it dispatches to the banded tier.
+    r_ = np.random.RandomState(1)
+    n_ = N9_BOX
+    Qi_b = np.stack([np.arange(n_), np.arange(n_)])
+    Gi_b = np.stack([np.arange(2 * n_), np.tile(np.arange(n_), 2)])
+    u = r_.rand(B, n_) + 0.5
+    lo = -(r_.rand(B, n_) + 0.5)
+    box = [torch.from_numpy(v.astype(np.float32)).to(dev) for v in (
+        1.0 + r_.rand(B, n_), r_.randn(B, n_),
+        np.concatenate([np.ones((B, n_)), -np.ones((B, n_))], 1),
+        np.concatenate([u, -lo], 1))]
+    f_b = qt.SpQPFunction(Qi_b, (n_, n_), Gi_b, (2 * n_, n_),
+                          np.zeros((2, 0), int), (0, n_), config=cfg)
+    check(f_b.structure == "banded", f"path 9c': {f_b.structure}")
+    tag = f"phase 9g (path 9c'): box pattern f32 B={B} n={n_}"
+    sol_b, fwd, _ = forward(tag, lambda: f_b.solve_full(*box, empty, empty),
+                            ("factor_inv",))
+    zb = sol_b.z.double().cpu().numpy()
+    viol = float(max((zb - u).max(), (lo - zb).max()))
+    print(f"# {tag}: bs={f_b._band[1]} nb={f_b._band[2]}; largest box "
+          f"violation {viol:.3e}")
+    check(viol <= 1e-4, f"{tag}: the box is violated by {viol:.3e}")
+    leaves = [v.clone().requires_grad_(True) for v in box]
+    fb, n_bad = backward(tag, lambda: f_b(*leaves, empty, empty), leaves,
+                         ("factor_inv",))
+    launches["c_box"] = dict(forward=fwd, forward_backward=fb)
+    facts["c_box"] = dict(iterations=int(sol_b.stats.iterations),
+                          box_violation=viol, nonfinite_grad_lanes=n_bad)
+    del leaves, box, sol_b
+
+    # (d) float64, card against CPU on N_F64_CPU lanes of (a, neq = 32)
+    # and of (c): z and nu to 1e-8, gradients to 1e-7, equal iterations.
+    L_ = N_F64_CPU
+    a_card = [v[:L_] if v.shape[0] == B else v for v in chain64]
+    c_card = [v[:L_].double() for v in vals]
+    f_cpu = qt.SpQPFunction(Qi, (N9C, N9C), Gi, (N9C, N9C),
+                            np.zeros((2, 0), int), (0, N9C), config=cfg,
+                            device="cpu")
+    e0 = torch.zeros(L_, 0, dtype=torch.float64)
+    for key, full, diff_fn, card_args in (
+            ("d_chain", lambda a, d: qt.solve_qp_banded_full(
+                *a, config=cfg, device=d),
+             lambda a, d: qt.solve_qp_banded(*a, config=cfg, device=d),
+             a_card),
+            ("d_general", lambda a, d: (f if d == dev else f_cpu).solve_full(
+                *a, e0.to(d), e0.to(d)),
+             lambda a, d: (f if d == dev else f_cpu)(*a, e0.to(d), e0.to(d)),
+             c_card)):
+        got = {}
+        for device in (dev, "cpu"):
+            args = [v.to(device) for v in card_args]
+            kernels.reset_launches()
+            sol = full(args, device)
+            its_ = int(sol.stats.iterations)
+            leaves = [v.clone().requires_grad_(True) for v in args]
+            z = diff_fn(leaves, device)
+            (z * z).sum().backward()
+            got[str(device)] = (sol, [v.grad for v in leaves], its_,
+                                dict(kernels.LAUNCHES))
+        (sc, gc, ic, lc), (sh, gh, ih, lh) = got[str(dev)], got["cpu"]
+        ez = rel(sc.z.cpu(), sh.z)
+        enu = rel(sc.nu.cpu(), sh.nu) if sh.nu.numel() else 0.0
+        eg = [rel(a.cpu(), c) for a, c in zip(gc, gh)]
+        print(f"# phase 9g (path 9d, {key}) f64 card vs CPU over {L_} lanes: "
+              f"z {ez:.3e}, nu {enu:.3e}, gradients "
+              + ", ".join(f"{e:.3e}" for e in eg)
+              + f"; iterations {ic} / {ih}; score max card "
+              f"{float(sc.stats.best_resids.max()):.3e} CPU "
+              f"{float(sh.stats.best_resids.max()):.3e}; card launches "
+              f"{ {k: v for k, v in lc.items() if v} }")
+        check(ez <= 1e-8 and enu <= 1e-8, f"path 9d {key}: z / nu")
+        check(all(e <= 1e-7 for e in eg), f"path 9d {key}: gradients")
+        check(ic == ih, f"path 9d {key}: iterations differ")
+        check(lc.get("factor_inv", 0) > 0 and not any(lh.values()),
+              f"path 9d {key}: kernel A on the card, none on the CPU")
+        facts[key] = dict(z=ez, nu=enu, grads=eg, iterations=ic)
+    del a_card, c_card, chain64
+    torch.cuda.empty_cache()
+    return launches, facts, dict(a=chain, c=(f, vals, empty))
+
+
+def path9_timings(torch, qt, kernels, dev, data, host_ms, report, spread,
+                  cuda_ms, device_ms, bound, elt):
+    """Phase 10 for path 9: forward and forward+backward ms of (a) at neq
+    = 0 and 32 and of (c) (median of 5); kernel A at the stage width m =
+    32 (B = 4096, no shift, as every stage runs it) against its bound, its
+    plain version and the library; and the device split of one (a)
+    forward+backward (neq = 32) by kernel class."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = qt.SolverConfig(check_Q_spd=False)
+    chain = data["a"]
+    f, vals, empty = data["c"]
+
+    def grads(fn, args):
+        leaves = [v.clone().requires_grad_(True) for v in args]
+        z = fn(leaves)
+        (z * z).sum().backward()
+
+    def banded(a):
+        return qt.solve_qp_banded(*a, config=cfg)
+
+    out = {}
+    for key, args in (("a_neq0", chain[:5]), (f"a_neq{NEQ9}", chain)):
+        ms_f = report(f"path9 ({key}) forward", host_ms(
+            lambda: qt.solve_qp_banded_full(*args, config=cfg)))
+        lo_f, hi_f = spread["last"]
+        ms_b = report(f"path9 ({key}) forward+backward", host_ms(
+            lambda: grads(banded, args)))
+        lo_b, hi_b = spread["last"]
+        out[key] = dict(forward_ms=ms_f, forward_min=lo_f, forward_max=hi_f,
+                        forward_backward_ms=ms_b, forward_backward_min=lo_b,
+                        forward_backward_max=hi_b)
+    ms_f = report("path9 (c) general forward", host_ms(
+        lambda: f.solve_full(*vals, empty, empty)))
+    lo_f, hi_f = spread["last"]
+    ms_b = report("path9 (c) general forward+backward", host_ms(
+        lambda: grads(lambda a: f(*a, empty, empty), vals)))
+    lo_b, hi_b = spread["last"]
+    out["c"] = dict(forward_ms=ms_f, forward_min=lo_f, forward_max=hi_f,
+                    forward_backward_ms=ms_b, forward_backward_min=lo_b,
+                    forward_backward_max=hi_b)
+
+    # Kernel A at the stage width: R's triangle and dinv in, Linv out.
+    m9 = BS9
+    g_ = torch.Generator(device=dev).manual_seed(96)
+    Lr = torch.rand(B, m9, m9, generator=g_, device=dev, dtype=torch.float64)
+    C9 = (Lr @ Lr.transpose(1, 2) / m9 + torch.eye(
+        m9, device=dev, dtype=torch.float64)).float().contiguous()
+    zero9 = torch.zeros(B, m9, device=dev)
+    eye9 = torch.eye(m9, device=dev).expand(B, m9, m9)
+
+    def kernel9():
+        return kernels.factor_inv(C9, zero9)
+
+    def library9():
+        L9, _ = torch.linalg.cholesky_ex(C9)
+        return torch.linalg.solve_triangular(L9, eye9, upper=False)
+
+    nbytes9 = B * (m9 * (m9 + 1) // 2 + m9 + m9 * m9) * elt
+    b_ms, b_by = bound(nbytes9, B * (2.0 / 3.0) * m9 ** 3)
+    stage = dict(
+        ms=cuda_ms(kernel9),
+        plain_ms=cuda_ms(lambda: kernels.factor_inv_plain(C9, zero9)),
+        bound_ms=b_ms, bound_by=b_by, bound_bytes=nbytes9,
+        library_ms=cuda_ms(library9), device_ms=device_ms(kernel9),
+        library_device_ms=device_ms(library9), dtype="float32", m=m9,
+        library_call="torch.linalg.cholesky_ex + "
+                     "torch.linalg.solve_triangular (two calls)")
+    d_, ld_ = stage["device_ms"], stage["library_device_ms"]
+    print(f"# phase 10: factor_inv at path 9's stage width (B={B} m={m9} "
+          f"float32, no shift): {stage['ms']:.3f} ms, device "
+          + (f"{d_:.4f}" if d_ is not None else "not measured")
+          + f" (plain {stage['plain_ms']:.3f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}, {nbytes9 / 1e6:.1f} MB, library {stage['library_ms']:.3f}"
+          " ms, device "
+          + (f"{ld_:.4f}" if ld_ is not None else "not measured") + ")")
+    out["kernel_a_stage"] = stage
+    del C9, zero9, eye9, Lr
+
+    # Device split of one (a) forward+backward with the equality rows.
+    grads(banded, chain)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grads(banded, chain)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by = [(e.self_device_time_total / 1e3, e.count, e.key)
+          for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA
+          and e.self_device_time_total > 0]
+    busy = sum(t for t, _, _ in by)
+
+    def cls(name):
+        n_ = name.lower()
+        if "factor_inv" in n_:
+            return "kernel A"
+        if "inv_solve" in n_:
+            return "kernel 5"
+        if any(s in n_ for s in ("gemm", "gemv", "cutlass", "xmma",
+                                 "sm90_", "dot_kernel", "splitk")):
+            return "GEMM/GEMV (cuBLAS)"
+        if any(s in n_ for s in ("index", "scatter", "gather")):
+            return "index, scatter, gather"
+        return "elementwise, reductions, copies"
+
+    split = {}
+    for t, c, k in by:
+        s_ = split.setdefault(cls(k), [0.0, 0])
+        s_[0] += t
+        s_[1] += c
+    out["trace"] = dict(
+        wall_ms=wall, device_busy_ms=busy or None,
+        device_idle_share=(1 - busy / wall) if busy else None,
+        launches=sum(c for _, c, _ in by),
+        split={k: dict(ms=v[0], launches=v[1]) for k, v in split.items()},
+        top=[dict(ms=t, count=c, name=k[:80])
+             for t, c, k in sorted(by, reverse=True)[:8]])
+    if busy:
+        print(f"# phase 10: trace of one path 9 (a, neq={NEQ9}) forward+"
+              f"backward: wall {wall:.2f} ms, device busy {busy:.2f} ms, "
+              f"idle share {1 - busy / wall:.3f}, "
+              f"{out['trace']['launches']} device launches; by class: "
+              + ", ".join(f"{k} {v[0]:.2f} ms x{v[1]}" for k, v in sorted(
+                  split.items(), key=lambda kv: -kv[1][0])))
+        for t, c, k in sorted(by, reverse=True)[:8]:
+            print(f"#   {t:9.3f} ms  x{c:<5d} {k[:90]}")
+    else:
+        print("# phase 10: trace (path 9 a): the profiler saw no device "
+              "time (not measured)")
+    return out
+
+
+def path9_examples(torch, kernels):
+    """The two example scripts of path 9 for 5 steps each on the card:
+    ``examples/torch_mpc.py`` in both formulations and
+    ``examples/torch_graph_qp.py`` on the general tier."""
+    import importlib.util
+
+    out = {}
+    for key, name, argv in (
+            ("mpc_banded", "torch_mpc", ["--formulation", "banded"]),
+            ("mpc_condensed", "torch_mpc", ["--formulation", "condensed"]),
+            ("graph_general", "torch_graph_qp", ["--structure", "general"])):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        kernels.reset_launches()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = mod.main(argv + ["--steps", "5", "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lk = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if name == "torch_mpc":
+            vals = [r["error"] for r in res]
+            its = [r["iterations"] for r in res]
+            print(f"# phase 9g: examples/{name}.py {' '.join(argv)}, 5 steps "
+                  f"on the card ({wall:.1f} s): mean |pos - target| "
+                  + ", ".join(f"{v:.4f}" for v in vals)
+                  + f"; iterations {its}; launches {lk}")
+            out[key] = dict(errors=vals, iterations=its, launches=lk,
+                            seconds=wall)
+        else:
+            vals, base, tier = res
+            print(f"# phase 9g: examples/{name}.py {' '.join(argv)}, 5 steps "
+                  f"on the card ({wall:.1f} s), tier {tier}: losses "
+                  + ", ".join(f"{v:.5f}" for v in vals)
+                  + f" (noisy input {base:.5f}); launches {lk}")
+            check(tier == "general", f"{name}: ran the {tier} tier")
+            out[key] = dict(losses=vals, noisy_mse=base, tier=tier,
+                            launches=lk, seconds=wall)
+        check(len(vals) == 5 and all(np.isfinite(vals)),
+              f"{name} {argv}: non-finite result")
+        check(lk.get("factor_inv", 0) > 0, f"{name} {argv}: kernel A did "
+              "not launch")
+    return out
+
+
 def main():
     import torch
 
@@ -935,6 +1576,20 @@ def main():
                         kernels.factor_inv_plain(R, d_), tol,
                         "factor_inv" if dtype == torch.float32 else None)
     del R, dinv, d_, got
+    # Kernel A at path 9's stage widths, B = 4096, without the shift (each
+    # block-Thomas stage is inverted so): examples/mpc.py's 3, path 9b's 16,
+    # 9a's 32, and the general planner's block for 9c.
+    for dtype, tol in ((torch.float32, TOL_F32), (torch.float64, TOL_F64)):
+        dt = str(dtype).split(".")[-1]
+        for m_ in sorted(set(STAGE_M9) | {general_stage_width(qt)}):
+            R = spd(B, m_, dtype, 7)
+            d_ = torch.zeros(B, m_, dtype=dtype, device=dev)
+            got = kernels.factor_inv(R, d_)
+            torch.cuda.synchronize()
+            compare(f"factor_inv {dt} B={B} m={m_} no shift (path 9's "
+                    "stages)", got, kernels.factor_inv_plain(R, d_), tol,
+                    "factor_inv" if dtype == torch.float32 else None)
+    del R, d_, got
 
     # float64 at an odd shape: a tight check catches indexing faults. One
     # lane is made non-SPD; both versions must freeze exactly that lane.
@@ -2731,6 +3386,12 @@ def main():
     # ---- phase 9f: solve_single and the torch example scripts ----
     single_examples = phase_9f(torch, qt, kernels, dev)
 
+    # ---- phase 9g (path 9): the banded and general structured tiers ----
+    launches9, facts9, data9 = phase_9g(torch, qt, kernels, dev)
+    facts9["examples"] = path9_examples(torch, kernels)
+    path_launches["path9_banded"] = launches9
+    path_facts["path9_banded"] = facts9
+
     # ---- phase 10: timings (CUDA events, median of REPS after warm-up) ----
     def cuda_ms(fn, reps=REPS, warm=3):
         for _ in range(warm):
@@ -3384,6 +4045,27 @@ def main():
         torch, qt, kernels, dev, data8, host_ms, report, spread))
     del data8
     torch.cuda.empty_cache()
+
+    # Path 9: (a) and (c) end to end, kernel A at the stage width, the
+    # device split of one (a) forward+backward; rows 1 and 5 of the kernels
+    # line take path 9's launches and the stage-width reading.
+    t9 = path9_timings(torch, qt, kernels, dev, data9, host_ms, report,
+                       spread, cuda_ms, device_ms, bound, elt)
+    paths_ms["path9_banded"] = dict(timings=t9)
+    del data9
+    torch.cuda.empty_cache()
+    p9l = path_launches["path9_banded"]
+    for r in rows:
+        key = {"qpth_tpu/ops/pallas/lanes.py:531": "factor_inv",
+               "qpth_tpu/ops/pallas/lanes.py:567": "inv_solve"}.get(
+                   r["replaces"])
+        if key:
+            r["path9_launches"] = {c: {w: n_.get(key, 0)
+                                       for w, n_ in p9l[c].items()}
+                                   for c in p9l}
+    rows[0]["path9_stage"] = dict(
+        t9["kernel_a_stage"],
+        launches=p9l[f"a_neq{NEQ9}"]["forward_backward"]["factor_inv"])
 
     # Device time of one forward+backward by kernel (torch.profiler), and
     # the share of the wall time the device was idle: the neq = 0 main

@@ -774,3 +774,65 @@ def test_auto_past_the_fit_on_card_matches_cpu(cuda):
     on_cpu = qt.solve_qp_full(*args, config=cfg, device="cpu")
     assert int(on_card.stats.iterations) == int(on_cpu.stats.iterations)
     assert (on_card.z.cpu() - on_cpu.z).abs().max().item() < 1e-8
+
+
+# The banded and general tiers: kernel A on every block-Thomas stage.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [2, 3, 8, 16, 32])
+def test_factor_inv_kernel_at_the_stage_widths(cuda, m, dtype):
+    """Kernel A without the shift at the banded tier's stage widths (MPC's
+    bs = 3, the benchmarks' 16 and 32, the planners' 2 and 8)."""
+    B = 257
+    R = _spd(B, m, dtype, cuda, seed=m)
+    zero = torch.zeros(B, m, dtype=dtype, device=cuda)
+    got = kernels.factor_inv(R, zero)
+    torch.cuda.synchronize()
+    want = kernels.factor_inv_plain(R, zero)
+    assert (got - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("neq", [0, 3])
+def test_banded_solve_on_card_matches_cpu(cuda, neq):
+    """A float64 banded solve with box rows (``g_cols``): the card against
+    the CPU, forward with equal iterations and the gradients to all seven
+    inputs; kernel A (and, with equality rows, kernel 5) launched."""
+    r = np.random.RandomState(5)
+    B, nb, bs = 8, 5, 4
+    n = nb * bs
+    Ld = np.tril(r.randn(B, nb, bs, bs) * 0.4) + np.eye(bs) * 1.8
+    Le = 0.35 * r.randn(B, nb - 1, bs, bs)
+    Qd = np.einsum("bnij,bnkj->bnik", Ld, Ld)
+    Qd[:, 1:] += np.einsum("bnij,bnkj->bnik", Le, Le)
+    Qe = np.einsum("bnij,bnkj->bnik", Le, Ld[:, :-1])
+    z0 = 0.3 * r.randn(B, n)
+    g = np.concatenate([np.ones((B, n)), -np.ones((B, n))], axis=1)
+    # Box rows x <= z0 + 0.5 + r, -x <= -z0 + 0.5 + r: z0 lies inside.
+    h = np.concatenate([z0, -z0], axis=1) + 0.5 + r.rand(B, 2 * n)
+    data = [Qd, Qe, r.randn(B, n), g, h]
+    if neq:
+        A = r.randn(neq, n) / np.sqrt(n)
+        data += [A, z0 @ A.T]
+    g_cols = list(range(n)) * 2
+    cfg = qt.SolverConfig(eps=1e-9, check_Q_spd=False)
+    out = {}
+    for device in ("cuda", "cpu"):
+        args = [torch.tensor(v, device=device, requires_grad=True)
+                for v in data]
+        kernels.reset_launches()
+        sol = qt.solve_qp_banded_full(*args, config=cfg, g_cols=g_cols,
+                                      device=device)
+        z = qt.solve_qp_banded(*args, config=cfg, g_cols=g_cols,
+                               device=device)
+        (z * z).sum().backward()
+        out[device] = (sol, [a.grad.cpu() for a in args],
+                       dict(kernels.LAUNCHES))
+    (sc, gc, lc), (sh, gh, lh) = out["cuda"], out["cpu"]
+    assert int(sc.stats.iterations) == int(sh.stats.iterations)
+    for name in ("z", "nu", "lam", "s"):
+        d = getattr(sc, name).cpu() - getattr(sh, name)
+        assert d.numel() == 0 or d.abs().max() < 1e-8, name
+    for a, b in zip(gc, gh):
+        assert (a - b).abs().max().item() <= 1e-7 * max(b.abs().max().item(),
+                                                        1.0)
+    assert lc["factor_inv"] > 0 and (lc["inv_solve"] > 0) == (neq > 0)
+    assert all(v == 0 for v in lh.values())

@@ -1,13 +1,18 @@
 """The torch example scripts (``examples/torch_cls_layer.py``,
-``examples/torch_sudoku.py``) against the JAX scripts they follow
-(``examples/cls_layer.py``, ``examples/sudoku.py``), on the CPU at small
-sizes. The port's model takes the Flax model's initial parameters
+``examples/torch_sudoku.py``, ``examples/torch_mpc.py``,
+``examples/torch_graph_qp.py``) against the JAX scripts they follow
+(``examples/cls_layer.py``, ``examples/sudoku.py``, ``examples/mpc.py``,
+``examples/graph_qp.py``), on the CPU at small sizes. The port's model takes the Flax model's initial parameters
 (``optnet_params_from_numpy``) and the scripts' own data; the first step's
 loss, gradients and Adam update then agree with the JAX script's step
 (``jax.value_and_grad`` and ``optax.adam``): float64 to 1e-8, and one
 float32 classifier step to 5e-4 of each gradient's largest entry (the
 float32 gradient tolerance of ``tests/test_torch_grads_f32.py``). A few
-steps of each script then lower its loss on the whole data set."""
+steps of each script then lower its loss on the whole data set. The MPC
+script's first two receding-horizon steps (cold, then warm-started) match
+the JAX package's solves of the same data in float64, in both
+formulations; the graph layer's first loss and weight gradient match the
+JAX SpQPFunction's on the general tier."""
 
 import importlib.util
 import os
@@ -187,8 +192,134 @@ def test_sudoku_script_lowers_its_loss():
     assert after < before, (before, after)
 
 
-@pytest.mark.parametrize("name", ["torch_cls_layer", "torch_sudoku"])
+@pytest.mark.parametrize("name", ["torch_cls_layer", "torch_sudoku",
+                                  "torch_mpc", "torch_graph_qp"])
 def test_scripts_need_cuda_unless_asked_for_the_cpu(name, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         _script(name).main(["--steps", "1"])
+
+
+@pytest.mark.parametrize("formulation", ["condensed", "banded"])
+def test_mpc_steps_match_jax(formulation):
+    """The first receding-horizon step and the warm-started second one,
+    float64, against the JAX package on the script's data: z to 1e-9 and
+    equal iterations (the JAX script's own solves, ``solve_qp_full`` with
+    ``prefactor_qp`` and ``solve_qp_banded_full`` with ``g_cols``)."""
+    import qpth_tpu
+
+    script = _script("torch_mpc")
+    B, T = 8, 6
+    pos, vel, target = (torch.tensor(a, dtype=torch.float64)
+                        for a in script.initial_state(B))
+    cfg_j = qpth_tpu.SolverConfig(check_Q_spd=False)
+    cfg_t = qt.SolverConfig(check_Q_spd=False)
+    if formulation == "condensed":
+        Q, G, A, S = script.build_mpc_qp(T)
+        h = np.full((B, 2 * T), script.U_MAX)
+        fac_j = qpth_tpu.prefactor_qp(*map(jnp.asarray, (Q, G, A)),
+                                      config=cfg_j)
+        fac_t = qt.prefactor_qp(*map(torch.tensor, (Q, G, A)), config=cfg_t,
+                                device="cpu")
+
+        def solves(init_t, init_j):
+            p, b = script.condensed_step_data(pos, vel, target,
+                                              torch.tensor(S))
+            ops = (Q, p.numpy(), G, h, A, b.numpy())
+            st = qt.solve_qp_full(*map(torch.tensor, ops), config=cfg_t,
+                                  init=init_t, factors=fac_t, device="cpu")
+            sj = qpth_tpu.solve_qp_full(*map(jnp.asarray, ops), config=cfg_j,
+                                        init=init_j, factors=fac_j)
+            return st, sj
+    else:
+        Qd, Qe, A, g, h, g_cols = script.build_banded(T)
+
+        def solves(init_t, init_j):
+            p, b = script.banded_step_data(pos, vel, target, 3 * T)
+            ops = (Qd, Qe, p.numpy(), g, h, A, b.numpy())
+            st = qt.solve_qp_banded_full(*map(torch.tensor, ops),
+                                         config=cfg_t, init=init_t,
+                                         g_cols=g_cols, device="cpu")
+            sj = qpth_tpu.solve_qp_banded_full(*map(jnp.asarray, ops),
+                                               config=cfg_j, init=init_j,
+                                               g_cols=g_cols)
+            return st, sj
+
+    init_t = init_j = None
+    for _ in range(2):
+        st, sj = solves(init_t, init_j)
+        _close(st.z.numpy(), sj.z, 1e-9, "z")
+        assert int(st.stats.iterations) == int(sj.stats.iterations)
+        init_t = (st.z, st.s, st.lam, st.nu)
+        init_j = (sj.z, sj.s, sj.lam, sj.nu)
+        u0 = st.z[:, 0 if formulation == "condensed" else 2]
+        pos, vel = (pos + script.DT * vel + 0.5 * script.DT ** 2 * u0,
+                    vel + script.DT * u0)
+
+
+@pytest.mark.parametrize("formulation", ["condensed", "banded"])
+def test_mpc_script_tracks_its_targets(formulation):
+    script = _script("torch_mpc")
+    recs = script.run(formulation, 16, 8, 6, torch.device("cpu"), log=None)
+    assert len(recs) == 6
+    assert all(np.isfinite(r["error"]) and r["iterations"] > 0
+               for r in recs)
+    assert recs[-1]["error"] < recs[0]["error"]
+
+
+def test_graph_first_step_matches_jax():
+    """float64, the general tier in both packages: the loss of the first
+    batch and its gradient to the log edge weights, the JAX package's
+    ``jax.value_and_grad`` through its SpQPFunction with the JAX script's
+    value construction, against the port's layer, to 1e-8."""
+    script = _script("torch_graph_qp")
+    n, B = 24, 6
+    label, Qi, Gi, E, m = script.make_graph(n)
+    noisy, clean = script.make_batch(np.random.RandomState(1), B, label)
+    model = script.GraphDenoiser(Qi, Gi, n, E, m, device="cpu",
+                                 dtype=torch.float64)
+    assert model.f.structure == "general"
+    assert model.f._tier(model.logw) == "general"
+    logw0 = np.random.RandomState(2).randn(E) * 0.3
+    with torch.no_grad():
+        model.logw.copy_(torch.tensor(logw0))
+    loss_t = script.loss_fn(model, torch.tensor(noisy), torch.tensor(clean))
+    loss_t.backward()
+
+    import qpth_tpu
+
+    fj = qpth_tpu.SpQPFunction(
+        Qi, (n, n), Gi, (m, n), np.zeros((2, 0), int), (0, n),
+        config=qpth_tpu.SolverConfig(verbose=-1, check_Q_spd=False))
+    assert fj.structure == "general"
+
+    def loss_j(logw):
+        # examples/graph_qp.py's qp_denoise.
+        w = jnp.exp(logw)
+        deg = jnp.zeros((n,)).at[Qi[0, n:n + 2 * E:2]].add(w).at[
+            Qi[1, n:n + 2 * E:2]].add(w)
+        Qv = jnp.concatenate([jnp.broadcast_to(1.0 + deg, (B, n)),
+                              jnp.repeat(-w, 2)[None] * jnp.ones((B, 1))],
+                             axis=1)
+        Gv = jnp.concatenate([jnp.ones((B, m, 1)), -jnp.ones((B, m, 1))],
+                             axis=-1).reshape(B, 2 * m)
+        z = fj(Qv, -jnp.asarray(noisy), Gv, jnp.full((B, m), 0.8),
+               jnp.zeros((B, 0)), jnp.zeros((B, 0)))
+        return jnp.mean((z - clean) ** 2)
+
+    lj, gj = jax.value_and_grad(loss_j)(jnp.asarray(logw0))
+    _close(float(loss_t.detach()), float(lj), 1e-8, "loss")
+    _close(model.logw.grad.numpy(), gj, 1e-8, "gradient")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_graph_script_lowers_its_loss(dtype):
+    """A few SGD steps of the script's training (float32: the densified
+    tier, as in the reference; float64: the general tier) end below the
+    noisy input's error."""
+    losses, base, tier = _script("torch_graph_qp").main(
+        ["--steps", "4", "--nodes", "24", "--batch", "8", "--dtype", dtype,
+         "--device", "cpu"])
+    assert tier == ("dense" if dtype == "float32" else "general")
+    assert len(losses) == 4 and all(np.isfinite(losses))
+    assert losses[-1] < base

@@ -265,7 +265,8 @@ def _params(fn):
 
 @pytest.mark.parametrize("entry", [
     "QPFunction", "solve_qp", "solve_qp_full", "solve_qp_eq", "prefactor_qp",
-    "solve_qp_diag", "solve_qp_diag_full", "SpQPFunction.__init__"])
+    "solve_qp_diag", "solve_qp_diag_full", "SpQPFunction.__init__",
+    "solve_qp_banded", "solve_qp_banded_full"])
 def test_public_signatures_match_jax(entry):
     """Each public entry point takes the JAX package's parameters by the
     same names, in the same order and of the same kinds; the port adds
