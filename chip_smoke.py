@@ -54,7 +54,16 @@ through the kernels at full width (B = 4096, float32 unless said):
 * D1 (ROADMAP §3): kernel A's and fused step B's float32 error against
   float64 on the inputs in tests/data_torch_d1.npz;
 * ``solve_single`` card against CPU, and the torch example scripts for 5
-  steps each.
+  steps each;
+* path 10: ``QPSolvers.CPU_ORACLE`` on the native C++ oracle against the
+  numpy copy, a ``profiling.trace`` of one bench forward and
+  ``profiling.solve_timings``; then two gloo ranks on the one card
+  (``chip_smoke.py --path10-rank``, started after the build): batch
+  sharding (the bench workload forward and forward+backward, float64, the
+  OptNet pattern's summed gradients) and tensor parallelism
+  (``factor_solve_hybrid_tp`` at m = 2048, ``solve_qp_tp`` at
+  n = m = 2048 and at 512 with 32 equality rows), each against this
+  process's single-process solve.
 
 It checks the results against float64 solves on the card and on the CPU
 and times kernels and solves with CUDA events. Any failed check exits
@@ -1441,6 +1450,513 @@ def path9_examples(torch, kernels):
         check(lk.get("factor_inv", 0) > 0, f"{name} {argv}: kernel A did "
               "not launch")
     return out
+
+
+# ---- path 10: multi-process solves, the native oracle, profiling ----
+WORLD10 = 2                   # gloo ranks sharing the one card
+N10_F64 = 64                  # float64 lanes per rank (the f64 check)
+M10_TP, B10_TP = 2048, 2      # factor_solve_hybrid_tp's T
+N10_TP = 2048                 # solve_qp_tp (tests/test_intra_tp.py:130-149)
+N10_EQ, NEQ10 = 512, 32       # solve_qp_tp with equality rows (:173-185)
+N10_ORACLE = 64               # CPU_ORACLE lanes, native against numpy
+P10_TIMEOUT = 420             # seconds for both ranks, start-up included
+
+
+def make_tp_matrix(m, nbatch, seed=3):
+    """A batch of SPD T = L L^T (L lower, 0.1 randn + 3 I), v and dinv
+    (tests/test_intra_tp.py::test_tp_hybrid_factor_m1024's draw)."""
+    npr = np.random.RandomState(seed)
+    L = np.tril(npr.randn(nbatch, m, m) * 0.1) + 3 * np.eye(m)
+    return (np.matmul(L, L.transpose(0, 2, 1)), npr.randn(nbatch, m),
+            0.5 + npr.rand(nbatch, m))
+
+
+def make_huge_qp(n, neq=0):
+    """One QP (B = 1) of tests/test_intra_tp.py's end-to-end draws: float32
+    gram + I Q, G (and A) scaled by 1 / sqrt(n); n = m = 2048 without
+    equality rows (seed 11, :130-149), 512 with (seed 5, :173-185)."""
+    f32 = np.float32
+    if neq == 0:
+        npr = np.random.RandomState(11)
+        W = npr.randn(n, n).astype(f32) * (1.0 / np.sqrt(n))
+        Q = W @ W.T + 1.0 * np.eye(n, dtype=f32)
+        G = npr.randn(n, n).astype(f32) / np.sqrt(n)
+        z0 = npr.randn(n).astype(f32)
+        h = G @ z0 + npr.rand(n).astype(f32)
+        p = npr.randn(n).astype(f32)
+        return [v.astype(f32)[None] for v in (Q, p, G, h)] + [None, None]
+    npr = np.random.RandomState(5)
+    W = npr.randn(n, n).astype(f32) / np.sqrt(n)
+    Q = W @ W.T + np.eye(n, dtype=f32)
+    G = npr.randn(n, n).astype(f32) / np.sqrt(n)
+    A = npr.randn(neq, n).astype(f32) / np.sqrt(n)
+    z0 = npr.randn(n).astype(f32)
+    h = G @ z0 + npr.rand(n).astype(f32) + 0.1
+    b = A @ z0
+    p = npr.randn(n).astype(f32)
+    return [v.astype(f32)[None] for v in (Q, p, G, h, A, b)]
+
+
+def optnet_problem():
+    """Phase 5's OptNet pattern: shared Q and G, batched p and h."""
+    Qs, _, Gs, _ = make_problem(1, NZ, NINEQ, seed=1)
+    npr = np.random.RandomState(2)
+    ps = npr.randn(B, NZ)
+    hs = (np.einsum("mn,bn->bm", Gs[0], npr.randn(B, NZ))
+          + npr.rand(B, NINEQ))
+    return Qs[0], ps, Gs[0], hs
+
+
+def path10_rank(rank, world, init_file, out):
+    """One rank of path 10 (``chip_smoke.py --path10-rank ...``): joins a
+    gloo group of ``world`` ranks on the one card through ``init_file``,
+    drives (a) batch sharding and (b) tensor parallelism, and writes its
+    results to ``out`` (``.npz`` and ``.json``). Any failure exits
+    nonzero."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    check(torch.cuda.is_available(), f"path 10 rank {rank}: no CUDA device")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=world, rank=rank,
+                            timeout=timedelta(seconds=P10_TIMEOUT))
+    sys.path.insert(0, ROOT)
+    import qpth_tpu_torch as qt
+    from qpth_tpu_torch.ops.cuda import kernels
+    from qpth_tpu_torch.parallel import (factor_solve_hybrid_tp,
+                                         local_batch_slice, solve_qp_sharded,
+                                         solve_qp_tp)
+    from qpth_tpu_torch.parallel.intra import tp_band
+
+    group = dist.group.WORLD
+    arrays, facts = {}, {}
+    sl = local_batch_slice(B, group)
+
+    def on(arrs, dtype, lanes=sl):
+        return [None if v is None else torch.tensor(
+            v[lanes] if v.ndim in (2, 3) and v.shape[0] == B else v,
+            dtype=dtype, device=dev) for v in arrs]
+
+    def timed(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(ts)
+
+    exit_tests = []
+    orig = dist.all_reduce
+
+    def counting_all_reduce(t, *a, **k):
+        exit_tests.append(t.numel())
+        return orig(t, *a, **k)
+
+    # (a) batch sharding, the bench workload: B / world lanes per rank.
+    bench = make_problem(B, NZ, NINEQ, seed=0)
+    cfg = qt.SolverConfig(check_Q_spd=False, process_group=group)
+    f32 = on(bench, torch.float32)
+    kernels.reset_launches()
+    sol = qt.solve_qp_full(*f32, config=cfg)
+    torch.cuda.synchronize()
+    facts["a_forward_launches"] = dict(kernels.LAUNCHES)
+    facts["a_forward_iterations"] = int(sol.stats.iterations)
+    arrays["a_z"] = sol.z.cpu().numpy()
+
+    def fwd_bwd(arrs, config):
+        ts = [t.clone().requires_grad_(True) for t in arrs]
+        z = solve_qp_sharded(*ts, group=group, config=config)
+        (z * z).sum().backward()
+        return z, [t.grad for t in ts]
+
+    kernels.reset_launches()
+    dist.all_reduce = counting_all_reduce
+    try:
+        z_fb, g_fb = fwd_bwd(f32, cfg)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = orig
+    facts["a_fb_launches"] = dict(kernels.LAUNCHES)
+    # The loop's packed exit test is the all_reduce of 3 or 4 scalars.
+    facts["a_fb_iterations"] = sum(1 for n in exit_tests if n in (3, 4))
+    facts["a_fb_all_reduces"] = len(exit_tests)
+    arrays["a_fb_z"] = z_fb.detach().cpu().numpy()
+    arrays["a_fb_dp"] = g_fb[1].cpu().numpy()
+    facts["a_forward_ms"] = timed(lambda: qt.solve_qp_full(*f32, config=cfg))
+    facts["a_fb_ms"] = timed(lambda: fwd_bwd(f32, cfg))
+    # float64: N10_F64 lanes per rank, the float64 default.
+    lanes64 = slice(rank * N10_F64, (rank + 1) * N10_F64)
+    cfg64 = qt.SolverConfig(check_Q_spd=False, process_group=group)
+    sol64 = qt.solve_qp_full(*on(bench, torch.float64, lanes64),
+                             config=cfg64)
+    arrays["a_f64_z"] = sol64.z.cpu().numpy()
+    facts["a_f64_iterations"] = int(sol64.stats.iterations)
+    # The OptNet pattern in float64: the gradients of the shared Q and G,
+    # summed over the ranks.
+    opt = on(optnet_problem(), torch.float64)
+    _, g_opt = fwd_bwd(opt, cfg64)
+    arrays["a_opt_dQ"] = g_opt[0].cpu().numpy()
+    arrays["a_opt_dG"] = g_opt[2].cpu().numpy()
+    arrays["a_opt_dp"] = g_opt[1].cpu().numpy()
+    del f32, sol, z_fb, g_fb, opt, g_opt
+
+    # (b) tensor parallelism: T's rows split over the ranks.
+    T, v, dinv = make_tp_matrix(M10_TP, B10_TP)
+    r0, r1 = tp_band(M10_TP, group)
+    for dt in ("float32", "float64"):
+        tt = lambda a: torch.tensor(a, dtype=getattr(torch, dt), device=dev)
+        T_rows, v_, d_ = tt(T[:, r0:r1]), tt(v), tt(dinv)
+        kernels.reset_launches()
+        fac, x = factor_solve_hybrid_tp(T_rows, v_, group=group, dinv=d_)
+        torch.cuda.synchronize()
+        facts[f"b_fs_{dt}_launches"] = dict(kernels.LAUNCHES)
+        facts[f"b_fs_{dt}_bytes"] = fac.nbytes()
+        arrays[f"b_fs_{dt}_x"] = x.cpu().numpy()
+        facts[f"b_fs_{dt}_ms"] = timed(lambda: factor_solve_hybrid_tp(
+            T_rows, v_, group=group, dinv=d_))
+        del fac, x, T_rows
+    del T
+    for tag, n, neq, its in (("tp", N10_TP, 0, 8), ("tp_eq", N10_EQ, NEQ10,
+                                                    6)):
+        args = [None if a is None else torch.tensor(a, device=dev)
+                for a in make_huge_qp(n, neq)]
+        tcfg = qt.SolverConfig(check_Q_spd=False, verbose=-1, max_iter=its)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        sol = solve_qp_tp(*args, group=group, config=tcfg)
+        torch.cuda.synchronize()
+        facts[f"b_{tag}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        facts[f"b_{tag}_launches"] = dict(kernels.LAUNCHES)
+        facts[f"b_{tag}_iterations"] = int(sol.stats.iterations)
+        arrays[f"b_{tag}_z"] = sol.z.cpu().numpy()
+        facts[f"b_{tag}_ms"] = timed(lambda: solve_qp_tp(
+            *args, group=group, config=tcfg), reps=1)
+        del args, sol
+    np.savez(out + ".npz", **arrays)
+    with open(out + ".json", "w") as f:
+        json.dump(facts, f)
+    dist.destroy_process_group()
+    print(f"rank {rank}: done")
+
+
+def phase_10x(torch, qt, kernels, dev, smi, fwd_ms, fb_ms, rows):
+    """Path 10: (c) the native oracle and (d) profiling in this process,
+    then (a) batch sharding and (b) tensor parallelism on WORLD10 gloo ranks
+    that share the card (``path10_rank``), each held against this
+    process's single-process solves. Returns the path's facts."""
+    from qpth_tpu_torch import native, profiling
+    from qpth_tpu_torch.ops import hybrid
+    from qpth_tpu_torch.solvers.oracle import solve_qp_batch_np
+
+    t_path = time.perf_counter()
+    facts = {"card": smi}
+    bench = make_problem(B, NZ, NINEQ, seed=0)
+    cfg = qt.SolverConfig(check_Q_spd=False)
+
+    def tensors(arrs, dtype, lanes=None):
+        return [torch.tensor(v[lanes] if lanes is not None
+                             and v.shape[0] == B else v, dtype=dtype,
+                             device=dev) for v in arrs]
+
+    # (c) the native oracle: it must build here; CPU_ORACLE on N10_ORACLE
+    # bench lanes against the numpy copy.
+    check(native.is_available(),
+          f"path 10 (c): the native oracle did not build: "
+          f"{native.build_error()}")
+    lanes = slice(0, N10_ORACLE)
+    o64 = tensors(bench, torch.float64, lanes)
+    ocfg = qt.SolverConfig(solver=qt.QPSolvers.CPU_ORACLE,
+                           check_Q_spd=False)
+    qt.solve_qp_full(*tensors(bench, torch.float64, slice(0, 2)),
+                     config=ocfg)
+    t0 = time.perf_counter()
+    sol_o = qt.solve_qp_full(*o64, config=ocfg)
+    torch.cuda.synchronize()
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x_np = solve_qp_batch_np(*(v[lanes] for v in bench))[0]
+    t_numpy = time.perf_counter() - t0
+    e_o = float(np.abs(sol_o.z.cpu().numpy() - x_np).max()
+                / np.abs(x_np).max())
+    print(f"# path 10 (c): CPU_ORACLE on {N10_ORACLE} bench lanes through "
+          f"the native oracle ({' '.join(native.built_with[1])}): "
+          f"{t_native / N10_ORACLE:.4f} host s per lane; the numpy copy "
+          f"{t_numpy / N10_ORACLE:.4f} s per lane; z rel diff {e_o:.3e} "
+          f"[{smi}]")
+    check(e_o <= 1e-9, f"path 10 (c): native vs numpy oracle {e_o:.3e}")
+    facts["c_native_s_per_lane"] = t_native / N10_ORACLE
+    facts["c_numpy_s_per_lane"] = t_numpy / N10_ORACLE
+    facts["c_rel_diff"] = e_o
+
+    # (d) profiling: a trace of one bench forward, and solve_timings.
+    f32 = tensors(bench, torch.float32)
+    tdir = os.path.join(ROOT, "build", "path10_trace")
+    if os.path.isdir(tdir):
+        for f_ in os.listdir(tdir):
+            os.unlink(os.path.join(tdir, f_))
+    with profiling.trace(tdir):
+        qt.solve_qp_full(*f32, config=cfg)
+    tfiles = [os.path.join(tdir, f_) for f_ in os.listdir(tdir)]
+    tbytes = sum(os.path.getsize(f_) for f_ in tfiles)
+    check(len(tfiles) == 1 and tbytes > 0, "path 10 (d): no trace written")
+    with open(tfiles[0]) as f_:
+        ev = json.load(f_)["traceEvents"]
+    check(len(ev) > 0, "path 10 (d): the trace holds no event")
+    n_dev = sum(1 for e in ev if e.get("cat") == "kernel")
+    first_s, best_s = profiling.solve_timings(
+        lambda *a: qt.solve_qp_full(*a, config=cfg), *f32, trials=5)
+    print(f"# path 10 (d): profiling.trace of one bench forward: "
+          f"{tbytes} bytes, {len(ev)} events, {n_dev} device kernel events;"
+          f" solve_timings: first {first_s * 1e3:.2f} ms, best of 5 "
+          f"{best_s * 1e3:.2f} ms (phase 10's median {fwd_ms:.2f} ms) "
+          f"[{smi}]")
+    facts.update(d_trace_bytes=tbytes, d_trace_kernel_events=n_dev,
+                 d_first_ms=first_s * 1e3, d_best_ms=best_s * 1e3)
+
+    # Single-process yardsticks: the bench forward and forward+backward in
+    # float32, and float64 z and dp (of sum(z^2), so a lane's dp is its
+    # own) on N_F64_CARD lanes, half from each rank's shard.
+    sol1 = qt.solve_qp_full(*f32, config=cfg)
+    its1 = int(sol1.stats.iterations)
+    ts1 = [t.clone().requires_grad_(True) for t in f32]
+    z1 = qt.solve_qp(*ts1, config=cfg)
+    (z1 * z1).sum().backward()
+    dp1 = ts1[1].grad
+    per = B // WORLD10
+    yl = np.concatenate([np.arange(r * per, r * per + N_F64_CARD // WORLD10)
+                         for r in range(WORLD10)])
+    ts64 = [t.requires_grad_(True)
+            for t in tensors(bench, torch.float64, yl)]
+    z64_ = qt.solve_qp(*ts64, config=qt.SolverConfig(
+        solve_method="inverse", resid_every=7, check_Q_spd=False))
+    (z64_ * z64_).sum().backward()
+    ref64, dp64 = z64_.detach(), ts64[1].grad
+    del ts1, z1, ts64, z64_
+
+    def med(e):
+        return float(torch.nan_to_num(e, nan=float("inf")).median())
+
+    def acc(z, want=None):
+        """The median per-lane relative error on the yardstick's lanes."""
+        want = ref64 if want is None else want
+        return med(lane_rel(torch.as_tensor(z, device=dev)[yl], want))
+
+    acc1, gacc1 = acc(sol1.z), acc(dp1, dp64)
+    del sol1
+    opt64 = tensors(optnet_problem(), torch.float64)
+    opt64 = [t.requires_grad_(True) for t in opt64]
+    z_o = qt.solve_qp(*opt64, config=cfg)
+    (z_o * z_o).sum().backward()
+    want_opt = [t.grad for t in opt64]
+    want_64 = qt.solve_qp_full(*tensors(bench, torch.float64,
+                                        slice(0, WORLD10 * N10_F64)),
+                               config=cfg).z
+    want_fs, base_fs = {}, {}
+    for dt in ("float32", "float64"):
+        T, v, dinv = (torch.tensor(a, dtype=getattr(torch, dt), device=dev)
+                      for a in make_tp_matrix(M10_TP, B10_TP))
+        fac, want_fs[dt] = hybrid.factor_solve_hybrid(T, v, dinv=dinv)
+        base_fs[dt] = sum(t.numel() * t.element_size() for t in
+                          fac.Gs + [P for P in fac.Ps if P is not None])
+        del T, fac
+    want_tp = {}
+    for tag, n, neq, its in (("tp", N10_TP, 0, 8), ("tp_eq", N10_EQ, NEQ10,
+                                                    6)):
+        args = [None if a is None else torch.tensor(a, device=dev)
+                for a in make_huge_qp(n, neq)]
+        tcfg = qt.SolverConfig(check_Q_spd=False, verbose=-1, max_iter=its,
+                               use_pallas="hybrid_xla")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        s_ = qt.solve_qp_full(*args, config=tcfg)
+        torch.cuda.synchronize()
+        want_tp[tag] = (s_.z, int(s_.stats.iterations),
+                        torch.cuda.max_memory_allocated() - base,
+                        dict(kernels.LAUNCHES))
+        t0 = time.perf_counter()
+        qt.solve_qp_full(*args, config=tcfg)
+        torch.cuda.synchronize()
+        want_tp[tag] += ((time.perf_counter() - t0) * 1e3,)
+        del args, s_
+    torch.cuda.empty_cache()
+
+    # The ranks: started after phase 1 built every library, so no two
+    # processes run nvcc into the same file.
+    wdir = os.path.join(ROOT, "build", "path10")
+    os.makedirs(wdir, exist_ok=True)
+    init_file = os.path.join(wdir, "rendezvous")
+    if os.path.exists(init_file):
+        os.unlink(init_file)
+    outs = [os.path.join(wdir, f"rank{r}") for r in range(WORLD10)]
+    logs = [open(o + ".log", "w") for o in outs]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--path10-rank", str(r),
+         str(WORLD10), init_file, outs[r]], stdout=logs[r],
+        stderr=subprocess.STDOUT, cwd=ROOT) for r in range(WORLD10)]
+    try:
+        while any(p_.poll() is None for p_ in procs):
+            if (any(p_.poll() not in (None, 0) for p_ in procs)
+                    or time.perf_counter() - t0 > P10_TIMEOUT):
+                break
+            time.sleep(0.2)
+    finally:
+        for p_ in procs:
+            if p_.poll() is None:
+                p_.kill()
+            p_.wait()
+        for f_ in logs:
+            f_.close()
+    wall = time.perf_counter() - t0
+    for r, p_ in enumerate(procs):
+        if p_.returncode != 0:
+            with open(outs[r] + ".log") as f_:
+                print(f_.read()[-6000:], file=sys.stderr)
+            fail(f"path 10: rank {r} exited {p_.returncode}")
+    res = []
+    for o in outs:
+        with open(o + ".json") as f_:
+            rf = json.load(f_)
+        res.append((dict(np.load(o + ".npz")), rf))
+    print(f"# path 10: {WORLD10} gloo ranks on the one card ran in "
+          f"{wall:.1f} s, start-up included [{smi}]")
+
+    # (a) against the single-process solve.
+    z_a = np.concatenate([a["a_z"] for a, _ in res])
+    z_fb = np.concatenate([a["a_fb_z"] for a, _ in res])
+    dp_fb = np.concatenate([a["a_fb_dp"] for a, _ in res])
+    acc_a, acc_fb, gacc_fb = acc(z_a), acc(z_fb), acc(dp_fb, dp64)
+    for r, (_, rf) in enumerate(res):
+        print(f"# path 10 (a) rank {r}: B={B // WORLD10} of {B} lanes: "
+              f"forward {rf['a_forward_ms']:.2f} ms, iterations "
+              f"{rf['a_forward_iterations']}, launches "
+              f"{ {k: v for k, v in rf['a_forward_launches'].items() if v} };"
+              f" forward+backward {rf['a_fb_ms']:.2f} ms, iterations "
+              f"{rf['a_fb_iterations']}, all_reduces "
+              f"{rf['a_fb_all_reduces']}, launches "
+              f"{ {k: v for k, v in rf['a_fb_launches'].items() if v} } "
+              f"[{smi}]")
+        check(rf["a_forward_iterations"] == its1
+              and rf["a_fb_iterations"] == its1,
+              f"path 10 (a) rank {r}: iterations differ from the "
+              f"single-process solve's {its1}")
+        check(rf["a_forward_launches"].get("ipm_step_xfree", 0) > 0,
+              f"path 10 (a) rank {r}: the fused step did not run")
+    print(f"# path 10 (a): single process B={B}: forward {fwd_ms:.2f} ms, "
+          f"forward+backward {fb_ms:.2f} ms (phase 10), iterations {its1}."
+          " Two ranks share one card here: their walls are no scaling "
+          "number")
+    print(f"# path 10 (a): median relative error against f64 over "
+          f"{N_F64_CARD} lanes, {N_F64_CARD // WORLD10} of each rank: z "
+          f"sharded forward {acc_a:.3e}, forward+backward {acc_fb:.3e}, "
+          f"single process {acc1:.3e}; dp sharded {gacc_fb:.3e}, single "
+          f"process {gacc1:.3e}")
+    check(acc_a <= 1.1 * acc1 and acc_fb <= 1.1 * acc1
+          and gacc_fb <= 1.1 * gacc1,
+          "path 10 (a): sharded accuracy not within 10% of the "
+          "single-process solve's")
+    # Each rank's lanes against the single-process solve of the same lanes:
+    # the sharded result may differ from it by less than the float32
+    # result's own error (the medians above).
+    z1_all = qt.solve_qp_full(*f32, config=cfg).z
+    for r, (a, _) in enumerate(res):
+        lanes_r = slice(r * per, (r + 1) * per)
+        d_z = lane_rel(torch.tensor(a["a_fb_z"], device=dev),
+                       z1_all[lanes_r].double())
+        d_p = lane_rel(torch.tensor(a["a_fb_dp"], device=dev),
+                       dp1[lanes_r].double())
+        bad = [int((~torch.isfinite(torch.as_tensor(x)).all(1)).sum())
+               for x in (a["a_fb_dp"], dp1[lanes_r].cpu())]
+        print(f"# path 10 (a) rank {r}: forward+backward against the "
+              f"single process on its {per} lanes: z median "
+              f"{med(d_z):.3e} max {float(d_z.max()):.3e}, dp median "
+              f"{med(d_p):.3e}; lanes with a non-finite dp {bad[0]} "
+              f"(single process {bad[1]})")
+        check(med(d_z) <= acc1 and med(d_p) <= gacc1,
+              f"path 10 (a) rank {r}: sharded forward+backward parts from "
+              "the single-process solve by more than its own error")
+    del z1_all, dp1
+    z64 = np.concatenate([a["a_f64_z"] for a, _ in res])
+    e64 = rel(torch.tensor(z64), want_64.cpu())
+    e_q = max(rel(torch.tensor(a["a_opt_dQ"]), want_opt[0].cpu())
+              for a, _ in res)
+    e_g = max(rel(torch.tensor(a["a_opt_dG"]), want_opt[2].cpu())
+              for a, _ in res)
+    e_p = rel(torch.tensor(np.concatenate([a["a_opt_dp"] for a, _ in res])),
+              want_opt[1].cpu())
+    print(f"# path 10 (a): float64, {N10_F64} lanes per rank against the "
+          f"single-process solve: z rel {e64:.3e}; OptNet pattern float64 "
+          f"B={B}: summed dQ rel {e_q:.3e}, dG {e_g:.3e}, per-lane dp "
+          f"{e_p:.3e}")
+    check(e64 <= 1e-10, f"path 10 (a): float64 sharded z {e64:.3e}")
+    check(max(e_q, e_g, e_p) <= 1e-7,
+          "path 10 (a): OptNet pattern gradients beyond 1e-7")
+
+    # (b) against the single-process blocked functions and solve.
+    for dt, tol in (("float32", 1e-5), ("float64", 1e-10)):
+        for r, (a, rf) in enumerate(res):
+            e = rel(torch.tensor(a[f"b_fs_{dt}_x"]), want_fs[dt].cpu())
+            print(f"# path 10 (b) rank {r}: factor_solve_hybrid_tp m="
+                  f"{M10_TP} B={B10_TP} {dt}: x rel {e:.3e}, factor "
+                  f"{rf[f'b_fs_{dt}_bytes']} bytes of {base_fs[dt]} "
+                  f"single-process, {rf[f'b_fs_{dt}_ms']:.2f} ms, kernel A "
+                  f"launches {rf[f'b_fs_{dt}_launches'].get('factor_inv', 0)}"
+                  f" [{smi}]")
+            check(e <= tol, f"path 10 (b) rank {r}: factor_solve {dt} "
+                  f"{e:.3e} > {tol}")
+    for tag, n, neq in (("tp", N10_TP, 0), ("tp_eq", N10_EQ, NEQ10)):
+        z1, its_1, peak1, l1, ms1 = want_tp[tag]
+        print(f"# path 10 (b): single-process 'hybrid_xla' n=m={n} neq="
+              f"{neq}: peak {peak1 / 2**20:.1f} MiB above its start, "
+              f"kernel A launches {l1.get('factor_inv', 0)}, iterations "
+              f"{its_1}, {ms1:.1f} ms")
+        for r, (a, rf) in enumerate(res):
+            e = rel(torch.tensor(a[f"b_{tag}_z"]), z1.cpu())
+            print(f"# path 10 (b) rank {r}: solve_qp_tp n=m={n} neq={neq}: "
+                  f"z rel {e:.3e}, iterations {rf[f'b_{tag}_iterations']}, "
+                  f"peak {rf[f'b_{tag}_peak_bytes'] / 2**20:.1f} MiB above "
+                  f"its start, kernel A launches "
+                  f"{rf[f'b_{tag}_launches'].get('factor_inv', 0)}, "
+                  f"{rf[f'b_{tag}_ms']:.1f} ms [{smi}]")
+            check(e <= 1e-5, f"path 10 (b) rank {r}: solve_qp_tp {tag} "
+                  f"{e:.3e} > 1e-5")
+            check(rf[f"b_{tag}_iterations"] == its_1,
+                  f"path 10 (b) rank {r}: solve_qp_tp iterations")
+            check(rf[f"b_{tag}_launches"].get("factor_inv", 0) > 0,
+                  f"path 10 (b) rank {r}: kernel A did not run")
+    facts.update(
+        ranks=[rf for _, rf in res], wall_s=wall, single_forward_ms=fwd_ms,
+        single_fb_ms=fb_ms, single_iterations=its1, acc_single=acc1,
+        acc_sharded_forward=acc_a, acc_sharded_fb=acc_fb,
+        grad_acc_single=gacc1, grad_acc_sharded_fb=gacc_fb, f64_rel=e64,
+        optnet_dQ_rel=e_q, optnet_dG_rel=e_g,
+        tp_single={t: dict(iterations=w[1], peak_bytes=w[2], launches=w[3],
+                           ms=w[4]) for t, w in want_tp.items()},
+        path_s=time.perf_counter() - t_path)
+    for r_ in rows:
+        key = {f"qpth_tpu/ops/pallas/lanes.py:{ln}": k for ln, k in (
+            (531, "factor_inv"), (550, "factor_inv_solve_rz"),
+            (540, "factor_inv_solve"), (1103, "ipm_step_xfree"),
+            (567, "inv_solve"), (918, "ipm_step"),
+            (1158, "ipm_step_eq"))}.get(r_["replaces"])
+        if key:
+            r_["path10_launches_per_rank"] = [
+                {c: rf[f"{c}_launches"].get(key, 0) for c in (
+                    "a_forward", "a_fb", "b_fs_float32", "b_tp", "b_tp_eq")}
+                for _, rf in res]
+    print(f"# path 10: {facts['path_s']:.1f} s in all")
+    return facts
 
 
 def main():
@@ -4107,10 +4623,14 @@ def main():
               for k, c_ in (("a", cfg5), ("b", cfg5f))}
     trace6 = trace_of("path 6 (a)", lambda: grads_of(f32, cfg6, dev))
 
+    # ---- path 10: multi-process solves, native oracle, profiling ----
+    p10 = phase_10x(torch, qt, kernels, dev, smi, fwd_ms, fb_ms, rows)
+
     # ---- phase 11: result lines ----
     for key in paths_ms:
         paths_ms[key].update(launches=path_launches[key],
                              **path_facts[key])
+    paths_ms["path10_parallel"] = p10
     paths_ms["path1_eq_batched"]["trace"] = trace1
     paths_ms["path5_diag"]["trace"] = trace5
     paths_ms["path6_blocked"]["trace"] = trace6
@@ -4133,4 +4653,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) > 1 and sys.argv[1] == "--path10-rank":
+        path10_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                    sys.argv[5])
+    else:
+        main()

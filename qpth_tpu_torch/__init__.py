@@ -14,24 +14,34 @@ structured tiers (``solve_qp_banded``, ``solve_qp_banded_full``,
 ``GeneralG``); ``SpQPFunction`` on every tier; the OptNet layers as
 ``torch.nn.Module``s (``qpth_tpu_torch.nn``); the hybrid blocked path past
 the kernels' fit (``use_pallas="hybrid"``, and "auto" past it on CUDA);
-and the unbatched solver ``solve_single``. Entry points run on CUDA unless
-called with ``device="cpu"``.
+the unbatched solver ``solve_single``; ``use_pallas="hybrid_xla"``;
+batch sharding and tensor parallelism over ``torch.distributed``
+(``qpth_tpu_torch.parallel``: ``solve_qp_sharded``, ``init_multihost``,
+``solve_qp_tp``, ``prefactor_qp_tp``); profiling (``qpth_tpu_torch.
+profiling``: ``trace``, ``solve_timings``); and the native C++ oracle behind
+``QPSolvers.CPU_ORACLE`` (``qpth_tpu_torch.native``). That is everything
+the JAX package does. Entry points run on CUDA unless called with
+``device="cpu"``.
 """
 
 from .config import (KKTSolver, QPSolution, QPSolutionLow, QPSolvers,
                      SolverConfig, SolveStats)
-from . import nn
+from . import (native, nn, parallel, profiling, solvers, sparse,  # noqa: F401
+               utils)
 from .bandqp import solve_qp_banded, solve_qp_banded_full
 from .convert import factors_from_numpy, optnet_params_from_numpy
 from .core.banded import GeneralG
 from .core.single import solve_single
 from .diagqp import solve_qp_diag, solve_qp_diag_full
 from .ops.kkt import KKTFactors
-from .qp import (QPFunction, prefactor_qp, solve_qp, solve_qp_eq,
+from .qp import (DEFAULT_CONFIG, QPFunction, prefactor_qp, solve_qp, solve_qp_eq,
                  solve_qp_full)
 from .sparse import SpQPFunction
 
+__version__ = "0.3.0"
+
 __all__ = [
+    "DEFAULT_CONFIG",
     "GeneralG",
     "KKTFactors",
     "KKTSolver",
@@ -43,9 +53,12 @@ __all__ = [
     "SolverConfig",
     "SpQPFunction",
     "factors_from_numpy",
+    "native",
     "nn",
     "optnet_params_from_numpy",
+    "parallel",
     "prefactor_qp",
+    "profiling",
     "solve_qp",
     "solve_qp_banded",
     "solve_qp_banded_full",

@@ -1,8 +1,10 @@
 """Solver configuration and statistics.
 
 Counterpart of ``qpth_tpu/config.py``. ``SolverConfig`` keeps the JAX
-package's fields and defaults minus ``axis_name`` (shard_map collectives,
-a TPU-mesh notion). ``use_pallas`` picks the KKT backend, not the device:
+package's fields and defaults, with ``process_group`` (a
+``torch.distributed`` process group, or None) in place of ``axis_name``
+(the shard_map axis): the group over which a batch-sharded solve finishes
+its batch reductions. ``use_pallas`` picks the KKT backend, not the device:
 the device of the tensors picks kernel or plain version (CUDA tensors
 launch the kernels, CPU tensors take their plain PyTorch versions), so the
 JAX package's library-only values have no counterpart here:
@@ -15,8 +17,11 @@ JAX package's library-only values have no counterpart here:
   batched GEMMs for the rest) at every size; ``"auto"``, ``True`` and
   ``"lanes"`` take it too on CUDA where nineq is past kernel A's fit, and
   inverse mode keeps Q as its blocked factor where nz is;
-* ``False``, ``"xla"``: ``NotImplementedError`` (no library-only path);
-* ``"hybrid_xla"``: ``NotImplementedError`` naming its ROADMAP item.
+* ``"hybrid_xla"``: the hybrid backend with inverse-mode cached products
+  (kernel A on the diagonal blocks), the single-process form of the
+  tensor-parallel path (``parallel.intra.solve_qp_tp``); the JAX package's
+  value keeps every ``pallas_call`` out of it so GSPMD can partition it;
+* ``False``, ``"xla"``: ``NotImplementedError`` (no library-only path).
 """
 
 from __future__ import annotations
@@ -118,6 +123,10 @@ class SolverConfig:
     escalate: str | None = None
     #: Residual-score threshold above which a lane escalates.
     escalate_tol: float = 1e-4
+    #: ``torch.distributed`` process group of a batch-sharded solve: the
+    #: loop's exit test, refinement's early exit, the INACC check and the
+    #: batch-collapsed Ruiz norms reduce over it. None: one process.
+    process_group: Optional[object] = None
 
     def __post_init__(self):
         up = self.use_pallas

@@ -39,7 +39,6 @@ iteration that finds ``done`` counts and does not step.
 
 from __future__ import annotations
 
-import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -49,7 +48,8 @@ from ..config import QPSolution, SolverConfig, SolveStats, resolve_refine_steps
 from ..ops import kkt as kkt_ops
 from ..ops.linalg import bmv, btmv
 from .diag import _bvec, _factor_spd, _m_solve, use_kernels_m
-from .pdipm import _is_f64, _step_to_boundary
+from .pdipm import (_is_f64, _step_to_boundary, exit_test,
+                    warn_inaccurate)
 
 
 def _bt_mul_s(Qd_s, Qe_s, x_s):
@@ -567,15 +567,9 @@ def solve_banded(Qd, Qe, p, g, h, A, b, config: SolverConfig,
         if neq > 0:
             best_y = torch.where(imp, y, best_y)
 
-        if per_lane_term:
-            n_not = torch.where(improved, 0, n_not + 1)
-            lane_done = lane_done | (n_not >= config.not_improved_lim)
-            window_done = lane_done.all()
-        else:
-            n_not = torch.where(improved.any(), 0, n_not + 1)
-            window_done = n_not >= config.not_improved_lim
-        done = (window_done | (best_resids.amax() < config.eps)
-                | (mu.amin() > config.mu_divergence))
+        n_not, lane_done, done = exit_test(config, per_lane_term, improved,
+                                           n_not, lane_done, 1,
+                                           (best_resids,), mu)
         if bool(done):  # the one host read per iteration
             break
         x, s, z, y = do_step(x, s, z, y, mu, rx, rz, ry)
@@ -616,13 +610,7 @@ def solve_banded(Qd, Qe, p, g, h, A, b, config: SolverConfig,
         best_x, best_s, best_z, best_y, best_resids, mu = best
 
     if config.verbose >= 0:
-        max_best = float(best_resids.amax())
-        if max_best > 1.0:
-            warnings.warn(
-                "qpth_tpu_torch: returning an inaccurate solution (max "
-                f"residual {max_best:.3e} > 1); the problem may be "
-                "infeasible or badly conditioned.", RuntimeWarning,
-                stacklevel=3)
+        warn_inaccurate(config, best_resids)
 
     stats = SolveStats(
         iterations=torch.tensor(iterations, dtype=torch.int32,

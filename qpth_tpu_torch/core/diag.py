@@ -32,15 +32,14 @@ not step, as ``lax.cond(done, identity, do_step)`` does there.
 
 from __future__ import annotations
 
-import warnings
-
 import torch
 
 from ..config import QPSolution, SolverConfig, SolveStats
 from ..ops.cuda import kernels
 from ..ops.kkt import no_library_path
 from ..ops.linalg import bmv, btmv, cho_solve_vec, cholesky
-from .pdipm import _is_f64, _step_to_boundary
+from .pdipm import (_is_f64, _step_to_boundary, exit_test,
+                    warn_inaccurate)
 
 
 def _bvec(v, B):
@@ -269,15 +268,9 @@ def solve_diag(q, p, g, h, A, b, config: SolverConfig,
         if neq > 0:
             best_y = torch.where(imp, y, best_y)
 
-        if per_lane_term:
-            n_not = torch.where(improved, 0, n_not + 1)
-            lane_done = lane_done | (n_not >= config.not_improved_lim)
-            window_done = lane_done.all()
-        else:
-            n_not = torch.where(improved.any(), 0, n_not + 1)
-            window_done = n_not >= config.not_improved_lim
-        done = (window_done | (best_resids.amax() < config.eps)
-                | (mu.amin() > config.mu_divergence))
+        n_not, lane_done, done = exit_test(config, per_lane_term, improved,
+                                           n_not, lane_done, 1,
+                                           (best_resids,), mu)
         if bool(done):  # the one host read per iteration
             break
         if use_fused:
@@ -286,13 +279,7 @@ def solve_diag(q, p, g, h, A, b, config: SolverConfig,
             x, s, z, y = composed_step(x, s, z, y, mu, rx, rz, ry)
 
     if config.verbose >= 0:
-        max_best = float(best_resids.amax())
-        if max_best > 1.0:
-            warnings.warn(
-                "qpth_tpu_torch: returning an inaccurate solution (max "
-                f"residual {max_best:.3e} > 1); the problem may be "
-                "infeasible or badly conditioned.", RuntimeWarning,
-                stacklevel=3)
+        warn_inaccurate(config, best_resids)
 
     stats = SolveStats(
         iterations=torch.tensor(iterations, dtype=torch.int32,

@@ -72,6 +72,76 @@ def resolve_resid_every(config: SolverConfig, dtype) -> int:
     return 1 if _is_f64(dtype) else 7
 
 
+def greduce(group, *terms):
+    """Finish batch reductions over a ``torch.distributed`` process group
+    (the JAX package's ``_greduce`` under shard_map). ``terms`` are
+    (value, op) pairs, op "max" or "min", each value a 0-dim tensor.
+    Without a group the values come back as they are. With one, they travel
+    packed in one float64 vector on their device through one
+    ``all_reduce(MAX)``, a min as the max of its negation, and come back in
+    their own dtypes."""
+    if group is None:
+        return tuple(v for v, _ in terms)
+    import torch.distributed as dist
+
+    packed = torch.stack([v.to(torch.float64) if op == "max"
+                          else -v.to(torch.float64) for v, op in terms])
+    dist.all_reduce(packed, op=dist.ReduceOp.MAX, group=group)
+    out = []
+    for r, (v, op) in zip(packed, terms):
+        r = r if op == "max" else -r
+        out.append(r > 0.5 if v.dtype == torch.bool else r.to(v.dtype))
+    return tuple(out)
+
+
+def exit_test(config: SolverConfig, per_lane_term: bool, improved, n_not,
+              lane_done, inc: int, scores, mu):
+    """The IPM loop's exit test: the not-improved window, per lane and
+    latched (``per_lane_term``) or global, advanced by ``inc`` where
+    ``improved`` is given (a scoring event), the max of each per-lane score
+    in ``scores`` (the smallest of those maxima) below eps, and min(mu)
+    above the divergence guard. Every batch reduction is finished over
+    ``config.process_group`` in one :func:`greduce`; the window's counter
+    takes the reduced ``any(improved)``. Returns (n_not, lane_done, done),
+    ``done`` a 0-dim bool tensor on the device."""
+    lim = config.not_improved_lim
+    if per_lane_term:
+        if improved is not None:
+            n_not = torch.where(improved, 0, n_not + inc)
+        lane_done = lane_done | (n_not >= lim)
+        window = lane_done.all()
+    else:
+        window = (improved.any() if improved is not None
+                  else torch.zeros((), dtype=torch.bool, device=mu.device))
+    red = greduce(config.process_group,
+                  (window, "min" if per_lane_term else "max"),
+                  *((v.amax(), "max") for v in scores), (mu.amin(), "min"))
+    if per_lane_term:
+        window_done = red[0]
+    else:
+        if improved is not None:
+            n_not = torch.where(red[0], 0, n_not + inc)
+        window_done = n_not >= lim
+    max_best = red[1]
+    for v in red[2:-1]:
+        max_best = torch.minimum(max_best, v)
+    return n_not, lane_done, (window_done | (max_best < config.eps)
+                              | (red[-1] > config.mu_divergence))
+
+
+def warn_inaccurate(config: SolverConfig, best_resids, advice: str = ""):
+    """The INACC warning (upstream qpth's INACC_ERR) where the batch's
+    best residual, reduced over ``config.process_group``, exceeds 1."""
+    max_best = float(greduce(config.process_group,
+                             (best_resids.amax(), "max"))[0])
+    if max_best > 1.0:
+        warnings.warn(
+            "qpth_tpu_torch: returning an inaccurate solution (max "
+            f"residual {max_best:.3e} > 1); the problem may be "
+            "infeasible or badly conditioned." + advice,
+            RuntimeWarning, stacklevel=4)
+
+
 def _step_to_boundary(v, dv):
     """Per-lane max step with v + a dv >= 0 (NaN propagates)."""
     inf = torch.full_like(v, float("inf"))
@@ -164,8 +234,11 @@ def _refine(best, Q, p, G, h, A, b, nineq, kkt_factor_solve,
         _, _, _, mu_n, score_n = score64(x, s, z, y)
         return x, s, z, y, mu_n, score_n
 
+    def batch_max(v):
+        return float(greduce(config.process_group, (v.amax(), "max"))[0])
+
     k, prev_m = 0, float("inf")
-    cur_m = float(score_b.amax()) if early_exit else 0.0
+    cur_m = batch_max(score_b) if early_exit else 0.0
     while k < steps and (not early_exit or k == 0 or cur_m < 0.5 * prev_m):
         x, s, z, y, mu_n, score_n = step_once(x, s, z, y)
         take = score_n < score_b
@@ -177,7 +250,7 @@ def _refine(best, Q, p, G, h, A, b, nineq, kkt_factor_solve,
         score_b = torch.minimum(score_n, score_b)
         mu_b = torch.where(take, mu_n, mu_b)
         if early_exit:
-            prev_m, cur_m = cur_m, float(score_n.amax())
+            prev_m, cur_m = cur_m, batch_max(score_n)
         k += 1
     return (bx, bs, bz, by), score_b, mu_b, k
 
@@ -275,7 +348,7 @@ def _escalate_oracle(esc, x, s, z, y, stats: SolveStats, Q, p, G, h, A, b,
 
 
 def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
-          config: SolverConfig, init=None) -> QPSolution:
+          config: SolverConfig, init=None, backend=None) -> QPSolution:
     """Run the batched IPM on one device. Matrices carry minimal batch dims
     (1 when shared); p (B, nz), h (B, nineq) and b (B, neq) are full-batch;
     A and b are None when neq == 0. All parameters are in original (user)
@@ -285,7 +358,11 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
     ``init``: optional warm start (x, s, z, y), for instance the previous
     receding-horizon solution; s and z are clipped to
     ``config.warm_start_min`` to restore strict interiority. y may be None
-    when neq == 0."""
+    when neq == 0.
+
+    ``backend``: a ``kkt_ops.KKTBackend`` in place of the one
+    ``config.use_pallas`` resolves to (the tensor-parallel path passes its
+    distributed factor and solves of T)."""
     B, nz = p.shape
     nineq = G.shape[-2]
     neq = A.shape[-2] if A is not None else 0
@@ -332,10 +409,11 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
 
     # FULL / IR build the saddle system each solve: no backend, and the
     # prefactorization serves the backward only.
-    backend = fs = None
+    fs = None
     if chol_partial:
-        backend = kkt_ops.resolve_backend(config.use_pallas, dtype, nineq,
-                                          device)
+        if backend is None:
+            backend = kkt_ops.resolve_backend(config.use_pallas, dtype,
+                                              nineq, device)
         fs = backend.prepare(factors)
 
     fast = chol_partial and fs.invQ_GT is not None
@@ -703,22 +781,12 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
             best_s = torch.where(imp, s, best_s)
             best_z = torch.where(imp, z, best_z)
             best_y = torch.where(imp, y, best_y)
-            if per_lane_term:
-                n_not = torch.where(improved, 0, n_not + inc)
-            else:
-                n_not = torch.where(improved.any(), 0, n_not + inc)
-        if per_lane_term:
-            lane_done = lane_done | (n_not >= config.not_improved_lim)
-            window_done = lane_done.all()
-        else:
-            window_done = n_not >= config.not_improved_lim
-        max_best = best_resids.amax()
-        if track:
-            # The current tracked score counts too, so a solve converging
-            # between checkpoints exits promptly.
-            max_best = torch.minimum(max_best, resids.amax())
-        done = (window_done | (max_best < config.eps)
-                | (mu.amin() > config.mu_divergence))
+        # The current tracked score counts too, so a solve converging
+        # between checkpoints exits promptly.
+        n_not, lane_done, done = exit_test(
+            config, per_lane_term, improved if exact_now else None, n_not,
+            lane_done, inc, (best_resids, resids) if track else
+            (best_resids,), mu)
         if config.verbose >= 1:
             # The iteration's one host read carries the print's means.
             *means, stop = torch.stack([pri.mean(), dual.mean(), mu.mean(),
@@ -776,14 +844,8 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
             early_exit=refine_early)
 
     if config.verbose >= 0:
-        max_best = float(best_resids.amax())
-        if max_best > 1.0:
-            warnings.warn(
-                "qpth_tpu_torch: returning an inaccurate solution (max "
-                f"residual {max_best:.3e} > 1); the problem may be "
-                "infeasible or badly conditioned. Try SolverConfig("
-                "kkt_solver=KKTSolver.IR) or the CPU oracle.",
-                RuntimeWarning, stacklevel=3)
+        warn_inaccurate(config, best_resids, " Try SolverConfig("
+                        "kkt_solver=KKTSolver.IR) or the CPU oracle.")
 
     # Stats are in original coordinates: the refined score is the original
     # problem's; the loop's recorded the original score beside the

@@ -26,7 +26,8 @@ The per-iteration work on T runs in the port's kernels through
   ``pallas_blocked_backend``): T's factor is Lt = chol(T)^T from kernel C
   and every solve on it is kernel D; no fused steps. In substitution mode
   kernel C also factors Q and S11 and kernel D runs every Q and S11 solve.
-* :func:`hybrid_backend` (``"hybrid"``, and ``"auto"`` / ``True``
+* :func:`hybrid_backend` (``"hybrid"`` and ``"hybrid_xla"``, and
+  ``"auto"`` / ``True``
   / ``"lanes"`` on CUDA with nineq past kernel A's fit, as the JAX package
   goes past its VMEM wall): T's factor is the blocked ``HybridFactor``,
   kernel A on the diagonal blocks and batched GEMMs for the rest; no fused
@@ -369,20 +370,22 @@ def no_library_path(use_pallas) -> None:
 
 def backend_kind(use_pallas) -> str:
     """"kernels", "blocked" or "hybrid" for a ``SolverConfig.use_pallas``
-    value; raises ``NotImplementedError`` for the values without a port."""
+    value; raises ``NotImplementedError`` for the values without a port.
+    ``"hybrid_xla"`` is the hybrid backend: the JAX package's value is its
+    hybrid path with no ``pallas_call`` (so GSPMD can partition it), and
+    the port has no library-only path; ``parallel.intra.solve_qp_tp``
+    distributes its factor and solves of T over a process group."""
     no_library_path(use_pallas)
-    if use_pallas == "hybrid_xla":
-        raise NotImplementedError(
-            "use_pallas='hybrid_xla' (the tensor-parallel path) — ROADMAP.md "
-            "§1 item 22")
-    if use_pallas in ("blocked", "hybrid"):
+    if use_pallas in ("hybrid", "hybrid_xla"):
+        return "hybrid"
+    if use_pallas == "blocked":
         return use_pallas
     return "kernels"
 
 
 def resolve_backend(use_pallas, dtype, m: int, device) -> KKTBackend:
-    """The backend for a solve with nineq = m. ``"hybrid"`` is the blocked
-    backend at every m on both devices. On CUDA, an m past kernel A's
+    """The backend for a solve with nineq = m. ``"hybrid"`` and
+    ``"hybrid_xla"`` are the blocked backend at every m on both devices. On CUDA, an m past kernel A's
     shared-memory fit (``fits``: float32 m <= 237, float64 m <= 166) takes
     it too, as the JAX package's lanes backend does past its VMEM wall;
     ``"blocked"`` past kernel C's fit (``chol_fits``: 239, 168) raises, as

@@ -79,25 +79,29 @@ def _canonicalize(Q, p, G, h, A, b):
     return Qb, pb, Gb, hb, Ab, bb, (B, *unb)
 
 
-def _build_factors(Qb, Gb, Ab, config: SolverConfig) -> kkt_ops.KKTFactors:
+def _build_factors(Qb, Gb, Ab, config: SolverConfig,
+                   prefactor=None) -> kkt_ops.KKTFactors:
     """One-time prefactorization, Ruiz-equilibrated first where
     ``equilibrate`` says so. With the probe ("auto"), well-scaled data
     takes the light branch: the factors stay in original coordinates
     (``scaling`` = identity) and the Ruiz scalings act only through
-    ``sem_scaling``; other data is scaled before factoring."""
+    ``sem_scaling``; other data is scaled before factoring. ``prefactor``
+    replaces ``kkt_ops.pre_factor_kkt`` (same arguments and result; the
+    tensor-parallel prefactor of ``parallel.intra``)."""
+    pre = prefactor or kkt_ops.pre_factor_kkt
     modes = kkt_ops.resolve_prefactor_modes(config, Qb.dtype)
     if not scaling_mod.resolve_equilibrate(config, Qb.dtype):
-        return kkt_ops.pre_factor_kkt(Qb, Gb, Ab, **modes)
+        return pre(Qb, Gb, Ab, **modes)
     probe = config.equilibrate == "auto"
     sc, ok = scaling_mod.ruiz_scalings(Qb, Gb, Ab, iters=config.ruiz_iters,
-                                       probe=probe)
+                                       probe=probe,
+                                       group=config.process_group)
     if probe and ok:
-        f = kkt_ops.pre_factor_kkt(Qb, Gb, Ab, **modes)
+        f = pre(Qb, Gb, Ab, **modes)
         return f._replace(scaling=scaling_mod.identity_like(sc),
                           sem_scaling=sc)
-    f = kkt_ops.pre_factor_kkt(scaling_mod.scale_Q(Qb, sc),
-                               scaling_mod.scale_G(Gb, sc),
-                               scaling_mod.scale_A(Ab, sc), **modes)
+    f = pre(scaling_mod.scale_Q(Qb, sc), scaling_mod.scale_G(Gb, sc),
+            scaling_mod.scale_A(Ab, sc), **modes)
     return f._replace(scaling=sc, sem_scaling=sc)
 
 
@@ -118,10 +122,13 @@ def _forward_batched(Qb, pb, Gb, hb, Ab, bb, config: SolverConfig,
 
 
 def _oracle_forward(Qb, pb, Gb, hb, Ab, bb) -> QPSolution:
-    """``QPSolvers.CPU_ORACLE``: every lane solved in float64 on the host by
-    ``solvers/oracle.py`` (upstream qpth's per-instance CVXPY loop), the
-    results returned in the inputs' dtype on their device. Stats report 0
-    iterations and every lane converged, as the JAX package's do."""
+    """``QPSolvers.CPU_ORACLE``: every lane solved in float64 on the host
+    (upstream qpth's per-instance CVXPY loop) by the native C++ oracle
+    (``native/``) where it builds, else by ``solvers/oracle.py``, as the JAX
+    package chooses; the results come back in the inputs' dtype on their
+    device. Stats report 0 iterations and every lane converged, as the JAX
+    package's do."""
+    from . import native
     from .solvers.oracle import solve_qp_batch_np
 
     B = pb.shape[0]
@@ -130,7 +137,9 @@ def _oracle_forward(Qb, pb, Gb, hb, Ab, bb) -> QPSolution:
     def host(v):
         return v.detach().cpu().numpy() if v is not None else None
 
-    out = solve_qp_batch_np(*(host(v) for v in (Qb, pb, Gb, hb, Ab, bb)))
+    solve = (native.solve_qp_batch_native if native.is_available()
+             else solve_qp_batch_np)
+    out = solve(*(host(v) for v in (Qb, pb, Gb, hb, Ab, bb)))
     x, nu, lam, s = (torch.as_tensor(v).to(dev, dt) for v in out)
     stats = SolveStats(
         iterations=torch.zeros((), dtype=torch.int32, device=dev),

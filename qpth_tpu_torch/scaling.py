@@ -96,11 +96,18 @@ def scale_A(A, s: Scaling):
 
 
 def ruiz_scalings(Q, G, A=None, iters: int = 4, pow2: bool = True,
-                  probe: bool = False, probe_spread: float = 16.0):
+                  probe: bool = False, probe_spread: float = 16.0,
+                  group=None):
     """Ruiz scalings of (Q, G, A) (not the scaled matrices).
 
     Q: (bQ, nz, nz); G: (bG, nineq, nz); A: (bA, neq, nz) or None. Returns
     ``(scaling, ok)``.
+
+    ``group``: the ``torch.distributed`` process group of a batch-sharded
+    solve. Where the matrices' batches differ, the norms collapse over the
+    batch, and then over the group too (one ``all_reduce(MAX)`` each), so
+    every rank scales a shared matrix alike. The probe's flag stays per
+    rank, as under the JAX package's shard_map.
 
     ``probe``: when the row/column norm spreads are <= ``probe_spread`` and
     the magnitudes lie in (2^-10, 2^10), one Ruiz iteration from the
@@ -115,6 +122,16 @@ def ruiz_scalings(Q, G, A=None, iters: int = 4, pow2: bool = True,
     bmax = max(batches)
     # Per-lane scalings only when every matrix carries the same batch.
     b = bmax if all(x == bmax for x in batches) else 1
+    collapsing = b == 1 and bmax > 1
+
+    def gmax(v):
+        """Finish a batch-collapsed max over the group."""
+        if collapsing and group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(v, op=dist.ReduceOp.MAX, group=group)
+        return v
+
     aQ, aG = Q.abs(), G.abs()
     aA = A.abs() if A is not None else None
     probe = probe and iters > 0
@@ -125,12 +142,12 @@ def ruiz_scalings(Q, G, A=None, iters: int = 4, pow2: bool = True,
     def isqrt(v):
         return None if v is None else 1.0 / torch.sqrt(_safe(v))
 
-    caQ = _colmax(aQ, b)
-    cn0 = torch.maximum(caQ, _colmax(aG, b))
+    caQ = gmax(_colmax(aQ, b))
+    cn0 = torch.maximum(caQ, gmax(_colmax(aG, b)))
     if A is not None:
-        cn0 = torch.maximum(cn0, _colmax(aA, b))
-    rg0 = _rowmax(aG, b)
-    ra0 = _rowmax(aA, b) if A is not None else None
+        cn0 = torch.maximum(cn0, gmax(_colmax(aA, b)))
+    rg0 = gmax(_rowmax(aG, b))
+    ra0 = gmax(_rowmax(aA, b)) if A is not None else None
 
     def run_ruiz():
         E = torch.ones((b, nz), dtype=dt, device=Q.device)
@@ -145,11 +162,13 @@ def ruiz_scalings(Q, G, A=None, iters: int = 4, pow2: bool = True,
                                    _wcolmax(aG, RG, b) * E)
                 if A is not None:
                     cn = torch.maximum(cn, _wcolmax(aA, RA, b) * E)
-                rg = _wrowmax(aG, E, b) * RG
-                ra = _wrowmax(aA, E, b) * RA if A is not None else None
+                cn = gmax(cn)
+                rg = gmax(_wrowmax(aG, E, b) * RG)
+                ra = (gmax(_wrowmax(aA, E, b) * RA) if A is not None
+                      else None)
             E, RG = E * rnd(isqrt(cn)), RG * rnd(isqrt(rg))
             RA = RA * rnd(isqrt(ra)) if A is not None else None
-        qn = (_wcolmax(aQ, E, b) * E).mean(dim=-1, keepdim=True)
+        qn = gmax(_wcolmax(aQ, E, b) * E).mean(dim=-1, keepdim=True)
         return E, RG, RA, rnd(1.0 / _safe(qn))
 
     def light():

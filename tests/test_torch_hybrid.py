@@ -16,8 +16,8 @@ its routing in ``ops/kkt.py``.
 * Routing past kernel A's fit, on the CPU, with ``kkt.past_fit`` patched to
   a small m (the fit is a CUDA fact; the plain versions take any size):
   "auto" takes the hybrid backend, ``_q_rep`` returns ``facQ``, refinement
-  solves through ``factor_solve_hybrid``; "blocked" past kernel C's fit and
-  "hybrid_xla" still raise.
+  solves through ``factor_solve_hybrid``; "blocked" past kernel C's fit
+  still raises, and "hybrid_xla" runs the hybrid backend.
 """
 
 import jax.numpy as jnp
@@ -265,10 +265,20 @@ def test_auto_past_the_fit_routes_to_hybrid(small_fit):
 
 
 def test_blocked_past_its_fit_and_hybrid_xla_raise():
+    """"blocked" past kernel C's fit still raises; "hybrid_xla" (it raised
+    naming item 22 until the tensor-parallel path was ported) is the
+    hybrid backend and solves as "hybrid" does."""
     with pytest.raises(NotImplementedError, match="'hybrid' solves past"):
         kkt_ops.resolve_backend("blocked", torch.float64, 169, "cuda")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        kkt_ops.resolve_backend("hybrid_xla", torch.float32, 5, "cpu")
+    be = kkt_ops.resolve_backend("hybrid_xla", torch.float32, 5, "cpu")
+    assert be.solve2 is hybrid.solve_hybrid and be.fused_step is None
+    Q, p, G, h, _, _ = make_feasible_qp(np.random.RandomState(4), nz=6,
+                                        nineq=5, nbatch=4)
+    args = [torch.tensor(v, dtype=torch.float32) for v in (Q, p, G, h)]
+    z = {v: qt.solve_qp_full(*args, config=qt.SolverConfig(use_pallas=v),
+                             device="cpu").z for v in ("hybrid",
+                                                       "hybrid_xla")}
+    npt.assert_array_equal(z["hybrid_xla"].numpy(), z["hybrid"].numpy())
 
 
 @pytest.mark.parametrize("neq", [0, 6])

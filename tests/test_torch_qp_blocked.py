@@ -227,7 +227,17 @@ def test_kernels_backend_values_are_the_default(value):
     (False, "no library-only path"), ("xla", "no library-only path"),
     ("hybrid_xla", "item 22")])
 def test_unported_values_raise(value, match):
+    """The library-only values raise. "hybrid_xla" raised naming item 22
+    until the tensor-parallel path was ported: it now runs the hybrid
+    backend and agrees with "hybrid"."""
     cfg = qt.SolverConfig(use_pallas=value)
+    if value == "hybrid_xla":
+        z = qt.solve_qp_full(*_tiny(), config=cfg, device="cpu").z
+        want = qt.solve_qp_full(*_tiny(), config=qt.SolverConfig(
+            use_pallas="hybrid"), device="cpu").z
+        npt.assert_array_equal(z.numpy(), want.numpy())
+        assert kkt_ops.backend_kind(value) == "hybrid"
+        return
     with pytest.raises(NotImplementedError, match=match):
         qt.solve_qp_full(*_tiny(), config=cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=match):

@@ -39,8 +39,16 @@ def _banned(name: str) -> bool:
             or name == "qpth_tpu" or name.startswith("qpth_tpu."))
 
 
+#: The modules of the last slice, which the scans below must cover.
+NEW_MODULES = ("profiling.py", "parallel/__init__.py", "parallel/sharding.py",
+               "parallel/multihost.py", "parallel/intra.py",
+               "native/__init__.py")
+
+
 def test_port_imports_no_jax():
     files = sorted((REPO / "qpth_tpu_torch").rglob("*.py"))
+    for rel in NEW_MODULES:
+        assert REPO / "qpth_tpu_torch" / rel in files, rel
     files.append(REPO / "chip_smoke.py")
     files += sorted((REPO / "examples").glob("torch_*.py"))
     assert len(files) > 10
@@ -54,6 +62,62 @@ def test_port_imports_no_jax():
                 continue
             bad = [n for n in names if _banned(n)]
             assert not bad, f"{f.relative_to(REPO)} imports {bad}"
+
+
+def _code_strings(tree):
+    """The string constants of a module that are not docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)):
+                docs.add(id(body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def test_port_names_no_path_inside_the_jax_package():
+    """No file of the port reads from the JAX package's tree: no string in
+    the port's code names a path inside ``qpth_tpu/``, no C++ or CUDA
+    source includes one, and the native oracle's source (a copy) names
+    none at all."""
+    import re
+
+    inside = re.compile(r"(?<![\w.])qpth_tpu(?:[/\\]|$)")
+    for f in sorted((REPO / "qpth_tpu_torch").rglob("*.py")):
+        for text in _code_strings(ast.parse(f.read_text(), str(f))):
+            assert not inside.search(text), (f.relative_to(REPO), text)
+    for f in sorted((REPO / "qpth_tpu_torch").rglob("*")):
+        if f.suffix not in (".cpp", ".cu", ".cuh", ".h"):
+            continue
+        for line in f.read_text().splitlines():
+            if line.lstrip().startswith("#include"):
+                assert not inside.search(line), (f.relative_to(REPO), line)
+    src = (REPO / "qpth_tpu_torch" / "native" / "qp_oracle.cpp").read_text()
+    assert not inside.search(src)
+    # Nor any absolute path of the machine it was copied on.
+    assert not re.search(r"(?:^|[\s(`'\"])/[A-Za-z_]+/", src, re.M)
+
+
+def test_no_raise_names_a_roadmap_item():
+    """Every ROADMAP item is ported: no ``NotImplementedError`` of the port
+    names one."""
+    import re
+
+    for f in sorted((REPO / "qpth_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(f.read_text(), str(f))):
+            if not (isinstance(node, ast.Raise) and node.exc is not None):
+                continue
+            call = node.exc
+            name = getattr(getattr(call, "func", None), "id", None)
+            if name != "NotImplementedError":
+                continue
+            text = " ".join(_code_strings(call))
+            assert not re.search(r"item \d|ROADMAP", text), (
+                f.relative_to(REPO), text)
 
 
 def test_port_solves_without_jax():
@@ -198,6 +262,7 @@ CASES = {
     "escalate": dict(config=qt.SolverConfig(escalate="oracle")),
     "verbose": dict(config=qt.SolverConfig(verbose=1)),
     "beyond_fit": dict(fit=True),
+    "hybrid_xla": dict(config=qt.SolverConfig(use_pallas="hybrid_xla")),
 }
 
 
@@ -205,7 +270,8 @@ def _jax_config(cfg):
     """The JAX package's SolverConfig with ``cfg``'s values."""
     import qpth_tpu
 
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+          if f.name != "process_group"}
     kw["kkt_solver"] = qpth_tpu.KKTSolver[cfg.kkt_solver.name]
     kw["solver"] = qpth_tpu.QPSolvers(cfg.solver.value)
     return qpth_tpu.SolverConfig(**kw)
@@ -226,10 +292,13 @@ def _matches_jax(Q, p, G, h, config, z):
 @pytest.mark.parametrize("case", list(CASES))
 def test_unported_branch_raises(case):
     """Branches that raised ``NotImplementedError`` until their ROADMAP item
-    was ported (items 9, 11, 12, 14, 13) now run: each case solves to a
+    was ported (items 9, 11, 12, 14, 13, 22) now run: each case solves to a
     finite solution equal to the JAX package's (float64, 1e-8).
     ``beyond_fit`` (item 13): past kernel A's fit "auto" takes the hybrid
-    backend instead of raising."""
+    backend instead of raising. ``hybrid_xla`` (item 22) runs the hybrid
+    backend; in float64 substitution mode the JAX package's value fails
+    (ROADMAP.md §3), so its yardstick there is the JAX package's
+    ``"hybrid"`` (its XLA backend at float64)."""
     spec = CASES[case]
     if spec.get("fit"):
         # The shared-memory fit is checked on CUDA only; the predicate is
@@ -239,20 +308,26 @@ def test_unported_branch_raises(case):
         return
     Q, p, G, h = _qp(torch.float64)
     sol = qt.solve_qp_full(Q, p, G, h, config=spec["config"], device="cpu")
-    _matches_jax(Q, p, G, h, spec["config"], sol.z)
+    ref = spec["config"]
+    if case == "hybrid_xla":
+        ref = dataclasses.replace(ref, use_pallas="hybrid")
+    _matches_jax(Q, p, G, h, ref, sol.z)
 
 
 def test_config_matches_jax_fields():
-    """SolverConfig keeps every JAX field but the TPU-mesh one, with the
-    same defaults."""
+    """SolverConfig keeps every JAX field, with the same defaults, but the
+    shard_map axis (``axis_name``), whose counterpart is the
+    ``torch.distributed`` group (``process_group``, None by default as
+    ``axis_name`` is)."""
     import qpth_tpu
 
     jf = {f.name: f.default for f in dataclasses.fields(qpth_tpu.SolverConfig)}
     tf = {f.name: f.default for f in dataclasses.fields(qt.SolverConfig)}
     assert set(jf) - set(tf) == {"axis_name"}
-    assert set(tf) <= set(jf)
+    assert set(tf) - set(jf) == {"process_group"}
+    assert jf["axis_name"] is None and tf["process_group"] is None
     for k, v in tf.items():
-        if k not in ("kkt_solver", "solver"):
+        if k not in ("kkt_solver", "solver", "process_group"):
             assert jf[k] == v, k
 
 
