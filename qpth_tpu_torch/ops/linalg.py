@@ -17,6 +17,8 @@ import contextlib
 
 import torch
 
+from ..profiling import span
+
 
 @contextlib.contextmanager
 def full_precision():
@@ -85,5 +87,8 @@ def add_diag(M, d):
 def spd_check_eager(Q) -> None:
     """Raise if any lane of Q is not SPD (upstream qpth's check)."""
     _, info = torch.linalg.cholesky_ex(Q)
-    if bool((info != 0).any()):
+    bad = (info != 0).any()
+    with span("qpth.sync"):
+        bad = bool(bad)
+    if bad:
         raise RuntimeError("Q is not SPD.")

@@ -29,6 +29,7 @@ from .core import pdipm
 from .ops import kkt as kkt_ops
 from .ops.linalg import (bmv, btmv, cho_solve, cho_solve_vec, cholesky,
                          full_precision, spd_check_eager)
+from .profiling import span
 from .utils import as_batched, bger, extract_nbatch, normalize_constraints
 
 DEFAULT_CONFIG = SolverConfig()
@@ -90,19 +91,20 @@ def _build_factors(Qb, Gb, Ab, config: SolverConfig,
     tensor-parallel prefactor of ``parallel.intra``)."""
     pre = prefactor or kkt_ops.pre_factor_kkt
     modes = kkt_ops.resolve_prefactor_modes(config, Qb.dtype)
-    if not scaling_mod.resolve_equilibrate(config, Qb.dtype):
-        return pre(Qb, Gb, Ab, **modes)
-    probe = config.equilibrate == "auto"
-    sc, ok = scaling_mod.ruiz_scalings(Qb, Gb, Ab, iters=config.ruiz_iters,
-                                       probe=probe,
-                                       group=config.process_group)
-    if probe and ok:
-        f = pre(Qb, Gb, Ab, **modes)
-        return f._replace(scaling=scaling_mod.identity_like(sc),
-                          sem_scaling=sc)
-    f = pre(scaling_mod.scale_Q(Qb, sc), scaling_mod.scale_G(Gb, sc),
-            scaling_mod.scale_A(Ab, sc), **modes)
-    return f._replace(scaling=sc, sem_scaling=sc)
+    with span("qpth.prefactor"):
+        if not scaling_mod.resolve_equilibrate(config, Qb.dtype):
+            return pre(Qb, Gb, Ab, **modes)
+        probe = config.equilibrate == "auto"
+        sc, ok = scaling_mod.ruiz_scalings(
+            Qb, Gb, Ab, iters=config.ruiz_iters, probe=probe,
+            group=config.process_group)
+        if probe and ok:
+            f = pre(Qb, Gb, Ab, **modes)
+            return f._replace(scaling=scaling_mod.identity_like(sc),
+                              sem_scaling=sc)
+        f = pre(scaling_mod.scale_Q(Qb, sc), scaling_mod.scale_G(Gb, sc),
+                scaling_mod.scale_A(Ab, sc), **modes)
+        return f._replace(scaling=sc, sem_scaling=sc)
 
 
 def _forward_batched(Qb, pb, Gb, hb, Ab, bb, config: SolverConfig,
@@ -135,7 +137,10 @@ def _oracle_forward(Qb, pb, Gb, hb, Ab, bb) -> QPSolution:
     dev, dt = pb.device, pb.dtype
 
     def host(v):
-        return v.detach().cpu().numpy() if v is not None else None
+        if v is None:
+            return None
+        with span("qpth.sync"):
+            return v.detach().cpu().numpy()
 
     solve = (native.solve_qp_batch_native if native.is_available()
              else solve_qp_batch_np)
@@ -158,7 +163,7 @@ class _QPCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, Qb, pb, Gb, hb, Ab, bb, init, factors, config, meta):
-        with full_precision():
+        with span("qpth.solve"), full_precision():
             sol, factors = _forward_batched(Qb, pb, Gb, hb, Ab, bb, config,
                                             init, factors)
         ctx.factors = factors if config.save_factors_for_backward else None
@@ -168,7 +173,7 @@ class _QPCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dl_dz):
-        with full_precision():
+        with span("qpth.backward"), full_precision():
             grads = _backward(ctx, dl_dz)
         return grads + (None, None, None, None)
 
@@ -193,77 +198,81 @@ def _backward(ctx, dl_dz):
     if factors is None:
         factors = _build_factors(Qb, Gb, Ab, config)
 
-    # Numerical-safety clamp of upstream qpth's backward.
-    c = config.grad_clamp
-    d = torch.clamp(lam, min=c) / torch.clamp(s, min=c)
+    with span("qpth.backward.solve"):
+        # Numerical-safety clamp of upstream qpth's backward.
+        c = config.grad_clamp
+        d = torch.clamp(lam, min=c) / torch.clamp(s, min=c)
 
-    # Equilibrated factors solve the scaled KKT system: map the cotangent
-    # and the complementarity diagonal in, the directions out. Only the
-    # substitution-mode branch reads the (scaled) G and A.
-    sc = factors.scaling
-    Gs, As = Gb, Ab
-    if sc is not None:
-        d = d * (sc.c / (sc.RG * sc.RG))
-        dl_dz = dl_dz * (sc.c * sc.E)
-        if factors.invQ_GT is None:
-            Gs = scaling_mod.scale_G(Gb, sc)
-            As = scaling_mod.scale_A(Ab, sc)
+        # Equilibrated factors solve the scaled KKT system: map the
+        # cotangent and the complementarity diagonal in, the directions
+        # out. Only the substitution-mode branch reads the (scaled) G and A.
+        sc = factors.scaling
+        Gs, As = Gb, Ab
+        if sc is not None:
+            d = d * (sc.c / (sc.RG * sc.RG))
+            dl_dz = dl_dz * (sc.c * sc.E)
+            if factors.invQ_GT is None:
+                Gs = scaling_mod.scale_G(Gb, sc)
+                As = scaling_mod.scale_A(Ab, sc)
 
-    backend = kkt_ops.resolve_backend(config.use_pallas, zhat.dtype, nineq,
-                                      zhat.device)
-    fs = backend.prepare(factors)
-    if fs.invQ_GT is not None:
-        # Inverse mode: the RHS and back-substitution products fold into
-        # the cached Q^-1 G^T / Q^-1 A^T; G and A are never read.
-        iQ_dl = kkt_ops.apply_invQ(fs, dl_dz)
-        rhs_T = -btmv(fs.invQ_GT, dl_dz)              # -G Q^-1 dl
+        backend = kkt_ops.resolve_backend(config.use_pallas, zhat.dtype,
+                                          nineq, zhat.device)
+        fs = backend.prepare(factors)
+        if fs.invQ_GT is not None:
+            # Inverse mode: the RHS and back-substitution products fold
+            # into the cached Q^-1 G^T / Q^-1 A^T; G and A are never read.
+            iQ_dl = kkt_ops.apply_invQ(fs, dl_dz)
+            rhs_T = -btmv(fs.invQ_GT, dl_dz)              # -G Q^-1 dl
+            if neq > 0:
+                u = bmv(fs.invS11, -btmv(fs.invQ_AT, dl_dz))
+                rhs_T = rhs_T - bmv(fs.S21, u)
+            _, dlam = backend.factor_solve(fs.R, d, rhs_T)
+            dx = -iQ_dl - bmv(fs.invQ_GT, dlam)
+            dnu = None
+            if neq > 0:
+                dnu = u - bmv(fs.W, dlam)
+                dx = dx - bmv(fs.invQ_AT, dnu)
+        else:
+            rhs_T, u = kkt_ops.prepare_rhs_kkt(fs, d, Gs, As, dl_dz, None,
+                                               None, None, backend.q_solve2)
+            _, dz_sol = backend.factor_solve(fs.R, d, rhs_T)
+            dx, _, dlam, dnu = kkt_ops.backsub_kkt(
+                fs, dz_sol, u, d, Gs, As, dl_dz, None, backend.q_solve2)
+        if sc is not None:
+            dx = dx * sc.E
+            dlam = dlam * (sc.RG / sc.c)
+            if neq > 0:
+                dnu = dnu * (sc.RA / sc.c)
+
+    with span("qpth.backward.grads"):
+        dQ = 0.5 * (bger(dx, zhat) + bger(zhat, dx))
+        dp = dx
+        dG = bger(dlam, zhat) + bger(lam, dx)
+        dh = -dlam
+        dA = db = None
         if neq > 0:
-            u = bmv(fs.invS11, -btmv(fs.invQ_AT, dl_dz))
-            rhs_T = rhs_T - bmv(fs.S21, u)
-        _, dlam = backend.factor_solve(fs.R, d, rhs_T)
-        dx = -iQ_dl - bmv(fs.invQ_GT, dlam)
-        dnu = None
-        if neq > 0:
-            dnu = u - bmv(fs.W, dlam)
-            dx = dx - bmv(fs.invQ_AT, dnu)
-    else:
-        rhs_T, u = kkt_ops.prepare_rhs_kkt(fs, d, Gs, As, dl_dz, None, None,
-                                           None, backend.q_solve2)
-        _, dz_sol = backend.factor_solve(fs.R, d, rhs_T)
-        dx, _, dlam, dnu = kkt_ops.backsub_kkt(fs, dz_sol, u, d, Gs, As,
-                                               dl_dz, None, backend.q_solve2)
-    if sc is not None:
-        dx = dx * sc.E
-        dlam = dlam * (sc.RG / sc.c)
-        if neq > 0:
-            dnu = dnu * (sc.RA / sc.c)
+            dA = bger(dnu, zhat) + bger(nu, dx)
+            db = -dnu
 
-    dQ = 0.5 * (bger(dx, zhat) + bger(zhat, dx))
-    dp = dx
-    dG = bger(dlam, zhat) + bger(lam, dx)
-    dh = -dlam
-    dA = db = None
-    if neq > 0:
-        dA = bger(dnu, zhat) + bger(nu, dx)
-        db = -dnu
+        mean_mode = config.broadcast_grad_reduction == "mean"
 
-    mean_mode = config.broadcast_grad_reduction == "mean"
+        def reduce_mat(g, M):
+            if g is not None and M.shape[0] == 1 and B > 1:
+                g = g.sum(dim=0, keepdim=True)
+                if mean_mode:
+                    g = g / B_global
+            return g
 
-    def reduce_mat(g, M):
-        if g is not None and M.shape[0] == 1 and B > 1:
-            g = g.sum(dim=0, keepdim=True)
-            if mean_mode:
-                g = g / B_global
-        return g
+        def reduce_vec(g, was_unbatched):
+            # expand's backward sums; only "mean" needs a correction.
+            if (g is not None and mean_mode and was_unbatched
+                    and B_global > 1):
+                return g / B_global
+            return g
 
-    def reduce_vec(g, was_unbatched):
-        # expand's backward sums; only "mean" needs a correction.
-        if g is not None and mean_mode and was_unbatched and B_global > 1:
-            return g / B_global
-        return g
-
-    return (reduce_mat(dQ, Qb), reduce_vec(dp, p_unb), reduce_mat(dG, Gb),
-            reduce_vec(dh, h_unb), reduce_mat(dA, Ab), reduce_vec(db, b_unb))
+        return (reduce_mat(dQ, Qb), reduce_vec(dp, p_unb),
+                reduce_mat(dG, Gb), reduce_vec(dh, h_unb),
+                reduce_mat(dA, Ab), reduce_vec(db, b_unb))
 
 
 def solve_qp(Q, p, G, h, A=None, b=None,
@@ -300,7 +309,7 @@ def solve_qp_full(Q, p, G, h, A=None, b=None,
     ``nineq == 0`` dispatches to the closed-form equality solver; ``lam``
     and ``s`` come back zero-width and the stats report convergence."""
     Q, p, G, h, A, b = _inputs(Q, p, G, h, A, b, device)
-    with torch.no_grad(), full_precision():
+    with span("qpth.solve"), torch.no_grad(), full_precision():
         if G is None:
             x, y = _solve_qp_eq_core(Q, p, A, b)
             B = x.shape[0]

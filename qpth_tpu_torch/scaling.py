@@ -21,6 +21,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .profiling import span
+
 
 class Scaling(NamedTuple):
     """Diagonal equilibration of a batch of QPs (minimal batch dims)."""
@@ -192,7 +194,8 @@ def ruiz_scalings(Q, G, A=None, iters: int = 4, pow2: bool = True,
             hi = torch.maximum(hi, _safe(v).amax())
             lo = torch.minimum(lo, _safe(v).amin())
         flag = flag & (hi < 2.0 ** 10) & (lo > 2.0 ** -10)
-        ok = bool(flag)
+        with span("qpth.sync"):
+            ok = bool(flag)
         E, RG, RA, c = light() if ok else run_ruiz()
     return Scaling(E=E, RG=RG, RA=RA, c=c), ok
 
