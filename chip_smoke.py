@@ -2249,6 +2249,40 @@ def main():
                 check(float(got[-1][5]) == 0.0
                       and bool(torch.equal(got[0][5], x_[5])),
                       f"{name_}: non-SPD lane was not frozen")
+    # The panels' edges in the fused steps' factor: m = 32 (one whole panel)
+    # and m = 33 (a second panel of one row), every mode, float32 at B and
+    # float64 at B = 64, R batched and shared, lane 5's T not SPD (frozen
+    # by both versions, every other lane stepped).
+    for m_ in (32, 33):
+        for dtype, nb, tol in ((torch.float32, B, TOL_F32),
+                               (torch.float64, 64, TOL_F64)):
+            dt = str(dtype).split(".")[-1]
+            for shared in ((), ("R", "g", "eq")):
+                mats, v = step_operands(nb, m_, NZ, 7, shared, dtype, 150 + m_)
+                x_, s_, z_, y_, q_, ip_, rb_ = v
+                Rb = (mats[0] - 2.0 * torch.eye(m_, device=dev,
+                                                dtype=dtype)).contiguous()
+                sb = z_ * (3.0 + s_)
+                sb[5] = 0.1 * z_[5]
+                mats, v = (Rb,) + mats[1:], (x_, sb, z_, y_, q_, ip_, rb_)
+                for nc in (0, 2):
+                    for name_, fn, plain, args in (
+                            ("ipm_step_xfree", kernels.ipm_step_xfree,
+                             kernels.ipm_step_xfree_plain,
+                             (Rb, sb, z_, q_, nc)),
+                            ("ipm_step", kernels.ipm_step,
+                             kernels.ipm_step_plain, no_eq(mats, v) + (nc,)),
+                            ("ipm_step_eq", kernels.ipm_step_eq,
+                             kernels.ipm_step_eq_plain, mats + v + (nc,))):
+                        got = fn(*args)
+                        torch.cuda.synchronize()
+                        compare(f"{name_} {dt} B={nb} m={m_} nz={NZ} neq=7 "
+                                f"shared={shared} n_correctors={nc} (lane 5 "
+                                "frozen)", got, plain(*args), tol)
+                        check(float(got[-1][5]) == 0.0
+                              and int((got[-1] > 0).sum()) == nb - 1,
+                              f"{name_}: the non-SPD lane alone must be "
+                              "frozen")
     del Linv, mats, v, got
 
     # Kernel 5 at every m from 1 to kernel A's largest fit, at B = 1, 64 and
@@ -2340,12 +2374,13 @@ def main():
                   "diag_step: the lane with a non-SPD M was not frozen")
     del args, got
 
-    # The one-tile recurrence (common.cuh::chol_inv_smem) at the largest m
-    # of kernels.fits (B = 64), with an nz and neq that fill the rest of the
-    # block: kernel A's three variants (lane 3 of the batched R not SPD: NaN
-    # in that lane alone) and the three fused-step modes (lane 5's T not
-    # SPD: frozen), R batched and shared; kernel 11 at a width of M beyond
-    # the old two-tile fit, with the largest n beside it.
+    # The largest m of kernels.fits (B = 64), with an nz and neq that fill
+    # the rest of the block: kernel A's three variants on the one-tile
+    # recurrence (common.cuh::chol_inv_smem; lane 3 of the batched R not
+    # SPD: NaN in that lane alone) and the three fused-step modes on the
+    # panels (lane 5's T not SPD: frozen), R batched and shared; kernel 11
+    # at a width of M beyond the old two-tile fit, with the largest n beside
+    # it.
     tile_max = {torch.float32: (237, 7, 8), torch.float64: (166, 100, 16)}
     for dtype, (m_, nz_, neq_) in tile_max.items():
         tol = TOL_F32 if dtype == torch.float32 else TOL_F64
@@ -2788,18 +2823,36 @@ def main():
           "path 1: prefactor (Q and S11) and init launches")
     med1 = f32_error("phase 6 (path 1)", sol1.z, eq_np, cfg64)
     kernels.reset_launches()
-    _, g1 = grads_of(eq32, cfg, dev)
-    torch.cuda.synchronize()
+    # R has rank nz - neq = 50 < nineq: the float32 backward checks its
+    # lanes, and solves those whose T rounded to not SPD again in float64
+    # (qp._redo_broken_lanes), one more factor_inv_solve for them all.
+    from qpth_tpu_torch import qp as qp_mod
+    redone, kkt_directions = [], qp_mod._kkt_directions
+
+    def count_redone(factors, *a):
+        if factors.R.dtype == torch.float64:
+            redone.append(a[2].shape[0])
+        return kkt_directions(factors, *a)
+
+    qp_mod._kkt_directions = count_redone
+    try:
+        _, g1 = grads_of(eq32, cfg, dev)
+        torch.cuda.synchronize()
+    finally:
+        qp_mod._kkt_directions = kkt_directions
     path_launches["path1_eq_batched"] = dict(forward=l1,
                                              forward_backward=dict(
                                                  kernels.LAUNCHES))
     print(f"# phase 6 (path 1): forward+backward launches "
-          f"{path_launches['path1_eq_batched']['forward_backward']}")
+          f"{path_launches['path1_eq_batched']['forward_backward']}; "
+          f"lanes whose backward was solved again in float64: "
+          f"{sum(redone)} of {B}")
     check(all(bool(torch.isfinite(g_).all()) for g_ in g1)
           and len(g1) == 6, "path 1: gradients to all six not finite")
-    check(kernels.LAUNCHES["factor_inv_solve"] == 1
-          and kernels.LAUNCHES["ipm_step_eq"] > 0,
-          "path 1: backward did not launch factor_inv_solve once")
+    check(kernels.LAUNCHES["factor_inv_solve"] == 1 + len(redone)
+          and len(redone) <= 1 and kernels.LAUNCHES["ipm_step_eq"] > 0,
+          "path 1: backward did not launch factor_inv_solve once (and "
+          "once more for its lanes solved again)")
     # The generator's own Q, reported and not held to a limit: float32
     # inverse mode cannot solve it with equality rows (the JAX package's
     # float32 path leaves the same error; tests/test_torch_qp_eq.py).
@@ -2810,6 +2863,7 @@ def main():
                       eq_raw, cfg64, limit=None)
     path_facts["path1_eq_batched"] = dict(
         iterations=its1, f32_median_rel_err=med1, q_shift=EQ_SHIFT,
+        backward_lanes_redone_f64=sum(redone),
         unshifted=dict(iterations=its1r, f32_median_rel_err=med1r),
         card_vs_cpu=card_vs_cpu("phase 6 (path 1)", eq_np, cfg64, "QpGhAb"))
     del g1, sol1r
@@ -4011,12 +4065,18 @@ def main():
           f"torch.linalg.solve_triangular, two calls) at B={B} m={m}")
     del T64, eye64
     nc = cfg.n_correctors
-    k_ms = cuda_ms(lambda: kernels.ipm_step_xfree(R, dinv, z, q - 1.0, nc))
+
+    def xfree_fn():
+        return kernels.ipm_step_xfree(R, dinv, z, q - 1.0, nc)
+
+    k_ms = cuda_ms(xfree_fn)
     p_ms = cuda_ms(lambda: kernels.ipm_step_xfree_plain(R, dinv, z, q - 1.0,
                                                         nc))
     xfree_bytes = rtri + 6 * vec + B * elt
+    # The fused steps factor T without forming its inverse: m^3 / 3 flops.
+    step_fac_flops = B * m ** 3 / 3.0
     b_ms, b_by = bound(xfree_bytes,
-                       fac_flops + B * (2 + 2 * (2 + nc)) * m * m)
+                       step_fac_flops + B * (2 + 2 * (2 + nc)) * m * m)
     rows.append(dict(
         name="ipm_step_xfree", route="cuda",
         source="qpth_tpu_torch/csrc/ipm_step_xfree.cu",
@@ -4024,7 +4084,7 @@ def main():
         launches=main_launches["ipm_step_xfree"],
         max_abs_err=errs["ipm_step_xfree"], ms=k_ms, plain_ms=p_ms,
         bound_ms=b_ms, bound_by=b_by, bound_bytes=xfree_bytes,
-        library_ms=None))
+        library_ms=None, device_ms=device_ms(xfree_fn)))
     # The three kernels of this slice at the main shapes (batched operands).
     nz, neq = NZ, NEQ
     mats, v = step_operands(B, m, nz, neq, (), torch.float32, 80)
@@ -4066,12 +4126,12 @@ def main():
          lambda: kernels.ipm_step(*step_args),
          lambda: kernels.ipm_step_plain(*step_args),
          rtri + B * nz * m * elt + 5 * vec + 3 * B * nz * elt + B * elt,
-         fac_flops + apply_flops + B * 2 * nz * m),
+         step_fac_flops + apply_flops + B * 2 * nz * m),
         ("ipm_step_eq", "ipm_step_eq.cu", 1158,
          lambda: kernels.ipm_step_eq(*eq_args),
          lambda: kernels.ipm_step_eq_plain(*eq_args),
          eq_mat_bytes + 5 * vec + 3 * B * (nz + neq) * elt + B * elt,
-         fac_flops + apply_flops
+         step_fac_flops + apply_flops
          + B * 2 * (nz * m + nz * neq + (5 + nc) * m * neq + 2 * neq * neq)),
     ]
     # launches: inv_solve from path 4 with equality rows, ipm_step from
@@ -4101,13 +4161,19 @@ def main():
             replaces=f"qpth_tpu/ops/pallas/lanes.py:{line}",
             launches=new_launches[name_], max_abs_err=errs[name_],
             ms=cuda_ms(k_fn), plain_ms=cuda_ms(p_fn), bound_ms=b_ms,
-            bound_by=b_by, bound_bytes=nbytes, library_ms=None))
+            bound_by=b_by, bound_bytes=nbytes, library_ms=None,
+            device_ms=device_ms(k_fn)))
     for r in rows:
         lib = (f", library {r['library_ms']:.3f} ms"
                if r["library_ms"] is not None else "")
+        dev_ = ""
+        if "device_ms" in r:
+            dev_ = (f", device {r['device_ms']:.4f} ms"
+                    if r["device_ms"] is not None else
+                    ", device not measured")
         print(f"# phase 10: {r['name']}: {r['ms']:.3f} ms (plain "
               f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
-              f"{r['bound_by']}{lib}) at B={B} m={m} "
+              f"{r['bound_by']}{lib}{dev_}) at B={B} m={m} "
               f"{r.get('dtype', 'float32')}")
     print(f"# phase 10: inv_solve float32: {inv32['ms']:.3f} ms (plain "
           f"{inv32['plain_ms']:.3f} ms, bound {inv32['bound_ms']:.4f} ms by "
@@ -4313,13 +4379,18 @@ def main():
         return out
 
     cf32, cf64 = chol_facts(torch.float32), chol_facts(torch.float64)
-    # Block barriers one QP passes in kernels C and E (constants of the
-    # sources: csrc/chol.cu::chol_barriers, csrc/trinv.cu::trinv_barriers).
+    # Block barriers one QP passes in kernels C and E and in the x-free
+    # step (constants of the sources: csrc/chol.cu::chol_barriers,
+    # csrc/trinv.cu::trinv_barriers, csrc/ipm_step_body.cuh::
+    # step_barriers; the other step modes pass the dx pass's 2 more, and
+    # the equality algebra's).
     chol_bar = build.load("chol").qpth_chol_barriers
     trinv_bar = build.load("trinv").qpth_trinv_barriers
+    step_bar = build.load("ipm_step_xfree").qpth_ipm_step_barriers
     print(f"# phase 10: block barriers per QP at m={m}: kernel C "
           f"{chol_bar(m, 0)} (with rhs {chol_bar(m, 1)}), kernel E "
-          f"{trinv_bar(m)}")
+          f"{trinv_bar(m)}, x-free step {step_bar(m, 0)} (with 2 "
+          f"Gondzio passes {step_bar(m, 2)})")
     la6 = path_launches["path6_blocked"]["a_forward_backward"]
     lb6 = path_launches["path6_blocked"]["b_forward_backward"]
     fused_note = ("path 6a forward+backward; every launch of kernel C with "

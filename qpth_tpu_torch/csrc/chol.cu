@@ -9,7 +9,8 @@
 //
 // One thread block per QP stages R's upper triangle in one m x m
 // shared-memory tile (40 KB at m = 100 in float32) and factors it
-// right-looking in panels of 32 rows (panel.cuh), as the TPU kernel's
+// right-looking in panels of 32 rows (panel.cuh::factor_panels, which the
+// fused IPM steps share), as the TPU kernel's
 // _chol_blocked_writeout (cholesky.py:92) does in panels of 16:
 //   (a) one warp factors the panel's diagonal block in registers, folding the
 //       shift into each pivot when it is reached, the pivots' rsqrt to isqv;
@@ -33,10 +34,11 @@
 // With rhs, the forward substitution y = L^-1 rhs rides in the panel loop
 // as one more column of (b) and (c) (y is the extra column of the augmented
 // matrix's factor). The back substitution L^T x = y then runs by panels
-// from the last: warp 0 runs the diagonal block's chain with isqv (no
-// division) while the other warps update the rows above (and, at the first
-// panel, write Lt out); 1 barrier per panel more, 16 per QP at m = 100 in
-// all. The factor never leaves shared memory in between.
+// from the last (panel.cuh::back_panels): warp 0 runs the diagonal block's
+// chain with isqv (no division) while the other warps update the rows above
+// (and, at the first panel, write Lt out); 1 barrier per panel more, 16
+// per QP at m = 100 in all. The factor never leaves shared memory in
+// between.
 //
 // What bounds it on an H100: bytes. At B = 4096, m = 100 in float32, R's
 // triangle in and Lt out (by its triangle, as the port's bound counts it)
@@ -57,71 +59,11 @@
 
 namespace qpth {
 
-__host__ __device__ constexpr int panels(int m) {
-  return (m + kPanelWidth - 1) / kPanelWidth;
-}
-
 // Block barriers one QP passes: the staging's, the first (a)'s, (b) of each
 // panel, and the diagonal block's update and (c) of all but the last; with
 // rhs 1 per panel more for the back substitution.
 __host__ __device__ constexpr int chol_barriers(int m, bool rhs) {
   return 3 * panels(m) + (rhs ? panels(m) : 0);
-}
-
-// One warp's 4 MI x 32 tile at (rb, cb) of the trailing matrix takes the
-// panel's rank-w update, T[r][c] -= sum_k W[k][r] W[k][c] (W: the panel's
-// rows of Lt, leading dimension m), on and above the diagonal.
-template <typename T, int MI>
-__device__ __forceinline__ void update_tile(T* Tm, const T* W, int m, int w,
-                                            int rb, int cb, int lane) {
-  int r[MI], c[4], ar[MI], bc[4];
-  tile_coords<MI>(rb, cb, lane, r, c);
-#pragma unroll
-  for (int i = 0; i < MI; ++i) ar[i] = min(r[i], m - 1);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) bc[q] = min(c[q], m - 1);
-  T acc[MI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = Tm[ar[i] * m + bc[q]];
-  tile_update<T, false, MI>(acc, W, W, m, ar, bc, 0, w);
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (r[i] < m && c[q] < m && c[q] >= r[i]) Tm[r[i] * m + c[q]] = acc[i][q];
-}
-
-// x_i -= sum_{k < w} Lt[i][p0 + k] x[p0 + k]: row i above panel p0 takes
-// the panel's solution.
-template <typename T>
-__device__ __forceinline__ void back_update_row(const T* Tm, int m, int p0,
-                                                int w, T* xs, int i) {
-  const T* Ui = Tm + i * m + p0;
-  T acc = xs[i];
-  for (int k = 0; k < w; ++k) acc -= Ui[k] * xs[p0 + k];
-  xs[i] = acc;
-}
-
-// One warp's chain of the back substitution over panel p0's w x w diagonal
-// block, column order, k descending: x_k = r_k isq_k, r_i -= Lt[i][k] x_k
-// (i < k); lane i holds r_i, the pivot's reciprocal is isqv's rsqrt.
-template <typename T>
-__device__ __forceinline__ void back_chain(const T* Tm, int m, int p0, int w,
-                                           const T* isqv, T* xs, int lane) {
-  const bool on = lane < w;
-  const T* Ui = Tm + (p0 + (on ? lane : 0)) * m + p0;
-  const T isq = on ? isqv[p0 + lane] : T(0);
-  T rv = on ? xs[p0 + lane] : T(0);
-#pragma unroll
-  for (int k = kPanelWidth - 1; k >= 0; --k) {
-    if (k >= w) continue;
-    if (lane == k) rv *= isq;
-    const T xk = __shfl_sync(kWarpAll, rv, k);
-    if (on && lane < k) rv -= Ui[k] * xk;
-  }
-  if (on) xs[p0 + lane] = rv;
 }
 
 template <typename T, bool SHIFT, bool RHS>
@@ -147,49 +89,7 @@ chol_kernel(const T* __restrict__ R, const T* __restrict__ dinv,
   }
   __syncthreads();
 
-  // (a) of the first panel; each later panel's (a) rides in the previous
-  // panel's (c).
-  if (warp == 0) chol_diag_block<T, SHIFT>(Tm, m, 0, min(kPanelWidth, m), dv, isqv, lane);
-  __syncthreads();
-  for (int p0 = 0; p0 < m; p0 += kPanelWidth) {
-    const int w = min(kPanelWidth, m - p0);
-    const int base = p0 + w, rest = m - base;
-    // (b) the panel's rows beyond the diagonal block, a column per thread;
-    // with rhs, y's panel as one more column.
-    for (int t = threadIdx.x; t < rest + (RHS ? 1 : 0); t += blockDim.x) {
-      const bool is_y = RHS && t == rest;
-      panel_solve_column(Tm, m, p0, w, isqv, is_y ? ys + p0 : Tm + p0 * m + base + t,
-                         is_y ? 1 : m);
-    }
-    __syncthreads();
-    if (rest == 0) break;
-    // (c) the rank-w update of the trailing upper triangle. First the next
-    // panel's diagonal block, 4 rows a warp; then warp 0 factors it, (a) of
-    // the next panel, while the other warps update the rest (and y) in
-    // tiles of 16 x 32.
-    const T* W = Tm + p0 * m;
-    if (4 * warp < min(kPanelWidth, rest))
-      update_tile<T, 1>(Tm, W, m, w, base + 4 * warp, base, lane);
-    __syncthreads();
-    if (warp == 0) {
-      chol_diag_block<T, SHIFT>(Tm, m, base, min(kPanelWidth, rest), dv, isqv, lane);
-    } else {
-      const int ntc = (rest + kTileCols - 1) / kTileCols;
-      const int ntiles = ntc * ((rest + kTileRows - 1) / kTileRows);
-      for (int t = warp - 1; t < ntiles; t += kWarps - 1) {
-        const int tr = t / ntc, tc = t - tr * ntc;
-        // Skip the tiles wholly below the diagonal, and the diagonal block's.
-        if (tc < tr / 2 || (tc == 0 && tr < 2)) continue;
-        update_tile<T, 4>(Tm, W, m, w, base + kTileRows * tr, base + kTileCols * tc, lane);
-      }
-      for (int t = threadIdx.x - 32; RHS && t < rest; t += blockDim.x - 32) {
-        T acc = ys[base + t];
-        for (int k = 0; k < w; ++k) acc -= W[k * m + base + t] * ys[p0 + k];
-        ys[base + t] = acc;
-      }
-    }
-    __syncthreads();
-  }
+  factor_panels<T, SHIFT, RHS>(Tm, m, dv, isqv, ys, warp, lane);
 
   T* Lb = Lt + b * m * m;
   if (!RHS) {
@@ -197,32 +97,14 @@ chol_kernel(const T* __restrict__ R, const T* __restrict__ dinv,
     return;
   }
 
-  // Back substitution Lt x = y, panels descending, in column order. Warp 0
-  // runs each panel's chain (back_chain) while the other warps write Lt out
-  // (first panel) or apply the panel before to the rows above the next one;
-  // warp 0 applies it to the next panel's own rows first: 1 barrier per
-  // panel.
-  int p0 = (panels(m) - 1) * kPanelWidth;
+  // Back substitution Lt x = y (back_panels). The other warps write Lt out
+  // while warp 0 copies y and runs the last panel's chain.
   if (warp == 0) {
     for (int i = lane; i < m; i += 32) xs[i] = ys[i];
-    __syncwarp();
-    back_chain(Tm, m, p0, m - p0, isqv, xs, lane);
   } else {
     store_triangle<T, true>(Lb, Tm, m, 1, kWarps - 1, warp, lane);
   }
-  __syncthreads();
-  for (; p0 > 0; p0 -= kPanelWidth) {
-    const int w = min(kPanelWidth, m - p0), q0 = p0 - kPanelWidth;
-    if (warp == 0) {
-      back_update_row(Tm, m, p0, w, xs, q0 + lane);
-      __syncwarp();
-      back_chain(Tm, m, q0, kPanelWidth, isqv, xs, lane);
-    } else {
-      for (int i = threadIdx.x - 32; i < q0; i += blockDim.x - 32)
-        back_update_row(Tm, m, p0, w, xs, i);
-    }
-    __syncthreads();
-  }
+  back_panels(Tm, m, isqv, xs, warp, lane);
   for (int i = threadIdx.x; i < m; i += blockDim.x) x[b * m + i] = xs[i];
 }
 

@@ -8,10 +8,11 @@
 //
 // What bounds it on an H100: bytes. At B = 4096, m = nz = 100, float32 it
 // reads R (symmetric: its triangle, 83 MB) and Q^-1 G^T (164 MB) once each
-// plus a few vectors, >= 0.078 ms at 3.35 TB/s; its ~2/3 m^3 + 2 m^2 (2 + n_correctors) + 2 nz m flops per QP
-// take ~0.05 ms at 67 TFLOP/s. As in the x-free kernel the m dependent pivot
-// steps (one barrier each) set its time; the Q^-1 G^T pass at the end adds
-// one coalesced read.
+// plus a few vectors, >= 0.078 ms at 3.35 TB/s; its ~1/3 m^3 + 2 m^2
+// (2 + n_correctors) + 2 nz m flops per QP take ~0.03 ms at 67 TFLOP/s. As
+// in the x-free kernel the panels' chains and barriers set its time (2 more
+// barriers than its step_barriers); the Q^-1 G^T pass at the end adds one
+// coalesced read.
 #include "ipm_step_body.cuh"
 
 namespace qpth {

@@ -10,8 +10,8 @@
 // line ([EQ]: kStepEq only; [X]: every mode but kStepXFree):
 //   [EQ] r1 = rb + S21^T z + S11 y;  u = S11^-1 (-r1);
 //        rhs_a = q - S21 (W z + y + u) - R z          (else rhs_a = q - R z)
-//   factor and invert T = R + diag(s/z) in one m x m tile (R z is taken from
-//   the raw R first);
+//   factor T = R + diag(s/z) in one m x m tile (R z is taken from the raw R
+//   first);
 //   predictor dz_a = T^-1 rhs_a, ds_a = (-z - dz_a)/d, [EQ] dy_a = u - W dz_a;
 //   Mehrotra centering sigma = (t1/t2)^3, mu = |t2|/m; corrector, [EQ] with
 //   dy -= W dz_c; n_correctors Gondzio passes, each accepted per QP when it
@@ -20,20 +20,40 @@
 //   alpha2 = min(0.999 step, 1); a NaN in any of dz, ds, dx, dy freezes the
 //   QP: alpha = 0 and every direction masked.
 //
-// One thread block per QP. R, then inv(L), sits in one m x m shared-memory
-// tile (common.cuh::chol_inv_smem factors and inverts it in place); thread i
+// One thread block per QP. R sits in one m x m shared-memory tile; thread i
 // keeps element i of every m-vector (s, z, d, dz, ds, ...) in registers, and
-// the per-QP min / sum reductions are block reductions. Each solve is two
-// shared-memory matvecs with inv(L). The nz- and neq-vectors (dx; y, u, dy
-// and one scratch) live in shared memory and are walked with strided loops,
-// so nz and neq are not tied to the thread count. Q^-1 G^T and the equality
-// operands (S21, W, S11^-1, S11, Q^-1 A^T) do not fit beside the tile; they
-// are read from device memory where they are used, one warp per row with its
-// lanes on consecutive addresses. Each carries its own batch flag: a shared operand is read with
+// the per-QP min / sum reductions are block reductions. T = R + diag(s/z) is
+// factored in place on kernel C's 32-row panels (panel.cuh::factor_panels:
+// one warp's register chain per diagonal block, the trailing updates on 4 x 4
+// register tiles, 3 barriers a panel), with the predictor's RHS riding as
+// one more column (its forward substitution), then back_panels for dz_a.
+// The corrector and each Gondzio pass are one forward and one back
+// substitution by panels from the factor left in the tile (solve_panels:
+// warp 0 runs each 32-step chain while the other warps apply the
+// off-diagonal blocks). No inverse is formed, and nothing but the step's
+// outputs is written to device memory. The panel routines read the tile's
+// upper triangle: R's lower one is mirrored onto it first (R = G Q^-1 G^T
+// from a product need not be bitwise symmetric; the plain version reads the
+// lower triangle), after R z is taken from the raw R.
+//
+// Barriers (x-free mode, step_barriers): 3 before the factor, 3 P - 1 in
+// it, P in the predictor's back substitution, 2 P - 1 a further solve, 2 a
+// block reduction, 1 for the freeze, with P = ceil(m / 32) panels: 34 at
+// m = 100 and n_correctors = 0, + 11 a Gondzio pass (the factor-inverse
+// with one barrier a pivot passed ~115). The panels' chains and the
+// barriers between them set its time, against 4 (float32, the register cap
+// of __launch_bounds__) or 2 (float64) blocks an SM.
+//
+// The nz- and neq-vectors (dx; y, u, dy and one scratch) live in shared
+// memory and are walked with strided loops, so nz and neq are not tied to the
+// thread count. Q^-1 G^T and the equality operands (S21, W, S11^-1, S11,
+// Q^-1 A^T) do not fit beside the tile; they are read from device memory
+// where they are used, one warp per row with its lanes on consecutive
+// addresses. Each carries its own batch flag: a shared operand is read with
 // batch stride 0 and stays in L2.
 #pragma once
 
-#include "common.cuh"
+#include "panel.cuh"
 
 namespace qpth {
 
@@ -54,21 +74,29 @@ struct StepArgs {
 
 enum StepMode { kStepXFree, kStepX, kStepEq };
 
+// Block barriers one QP passes in the x-free mode (the header's count); the
+// other modes add the equality algebra's and the dx pass's.
+__host__ __device__ constexpr int step_barriers(int m, int n_correctors) {
+  return 6 * panels(m) + 10 + n_correctors * (2 * panels(m) + 3);
+}
+
 template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
+__global__ void __launch_bounds__(kThreads, PanelBlocks<T>::value)
+ipm_step_kernel(StepArgs<T> a) {
   constexpr bool EQ = MODE == kStepEq;
   constexpr bool DX = MODE != kStepXFree;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T red[kWarps];
   const int m = a.m, nz = DX ? a.nz : 0, neq = EQ ? a.neq : 0;
-  T* Tm = reinterpret_cast<T*>(smem_raw);  // R, then inv(L)
-  T* dv = Tm + m * m;
-  // S21 (W z + y + u) until the predictor's RHS is formed, then the pivots'
-  // rsqrt of the factorization (isqv).
-  T* lcol = dv + m;
-  T* r = lcol + m;
-  T* w = r + m;
-  T* zs = w + m;
+  T* Tm = reinterpret_cast<T*>(smem_raw);  // R, then Lt above the diagonal
+  T* dv = Tm + m * m;                      // s / z, the factor's shift
+  T* isqv = dv + m;                        // the pivots' rsqrt
+  T* xs = isqv + m;                        // the substitutions' vector
+  T* w = xs + m;                           // R z
+  T* zs = w + m;                           // z, then scratch
+  T* ss = zs + m;                          // s across the factor
+  // S21 (W z + y + u), until the predictor's RHS is formed.
+  T* lcol = ss + m;
   T* dxs = Tm + m * m + kSmemVectors * m;  // nz
   T* ys = dxs + nz;                        // neq each from here
   T* us = ys + neq;
@@ -85,13 +113,11 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
   const T* iAT = nullptr;
   for (int k = i; k < m * m; k += blockDim.x) Tm[k] = Rb[k];
 
-  const T s = act ? a.s[b * m + i] : T(1);
-  const T z = act ? a.z[b * m + i] : T(1);
-  const T q = act ? a.q[b * m + i] : T(0);
-  const T d = z / s;
   if (act) {
-    dv[i] = s / z;
-    zs[i] = z;
+    const T s0 = a.s[b * m + i], z0 = a.z[b * m + i];
+    dv[i] = s0 / z0;
+    zs[i] = z0;
+    ss[i] = s0;
   }
   if (EQ)
     for (int c = i; c < neq; c += blockDim.x) ys[c] = a.y[b * neq + c];
@@ -123,13 +149,24 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
     __syncthreads();
   }
 
-  // Predictor RHS, with R z from the whole raw R before the factorization
-  // mirrors its lower triangle. lcol is read here for the last time: the
-  // factorization's first barrier publishes r and frees lcol for isqv.
+  // Predictor RHS, with R z from the whole raw R; then R's lower triangle is
+  // mirrored onto the upper one, which the panel routines read (a warp per
+  // row, reads below the diagonal and writes above it never meet).
   smem_matvec<T, false>(Tm, zs, w, m);
   __syncthreads();
-  if (act) r[i] = EQ ? (q - lcol[i]) - w[i] : q - w[i];
-  chol_inv_smem(Tm, dv, lcol, m);
+  if (act) {
+    const T q = a.q[b * m + i];
+    xs[i] = EQ ? (q - lcol[i]) - w[i] : q - w[i];
+  }
+  for (int r = warp; r < m; r += kWarps)
+    for (int c = lane; c < r; c += 32) Tm[c * m + r] = Tm[r * m + c];
+  __syncthreads();
+
+  // T's factor, with the predictor's forward substitution riding in it.
+  factor_panels<T, true, true>(Tm, m, dv, isqv, xs, warp, lane);
+
+  // x = T^-1 r for r held one element per thread.
+  auto solve = [&](T r) { return solve_panels(Tm, m, isqv, xs, r, warp, lane); };
 
   const MinOp mn;
   const SumOp sm;
@@ -137,7 +174,7 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
   const T inf = inf_t<T>();
 
   // ts = W v for an m-vector held one element per thread (zs is free once
-  // R z is taken). Ends with a barrier.
+  // R z is taken and z is back in a register). Ends with a barrier.
   auto w_apply = [&](T v) {
     if (act) zs[i] = v;
     __syncthreads();
@@ -145,8 +182,12 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
     __syncthreads();
   };
 
-  // Predictor.
-  const T dz_a = apply_inv(Tm, r, w, m);
+  // Predictor: the back substitution of the riding column.
+  back_panels(Tm, m, isqv, xs, warp, lane);
+  const T s = act ? ss[i] : T(1);
+  const T z = act ? zs[i] : T(1);
+  const T d = z / s;
+  const T dz_a = act ? xs[i] : T(0);
   const T ds_a = (-z - dz_a) / d;
   if (EQ) {
     w_apply(dz_a);
@@ -163,9 +204,7 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
 
   // Corrector (RHS zero except rs).
   const T rs_c = (-(mu * sig) + ds_a * dz_a) / s;
-  if (act) r[i] = -(rs_c / d);
-  __syncthreads();
-  const T dz_c = apply_inv(Tm, r, w, m);
+  const T dz_c = solve(-(rs_c / d));
   const T ds_c = (-rs_c - dz_c) / d;
   T dz = dz_a + dz_c;
   T ds = ds_a + ds_c;
@@ -182,9 +221,7 @@ __global__ void __launch_bounds__(kThreads) ipm_step_kernel(StepArgs<T> a) {
     const T v = (s + a_t * ds) * (z + a_t * dz);
     const T mu_t = sig * mu;
     const T rs_g = (v - nan_min(nan_max(v, T(0.1) * mu_t), T(10.0) * mu_t)) / s;
-    if (act) r[i] = -(rs_g / d);
-    __syncthreads();
-    const T ddz = apply_inv(Tm, r, w, m);
+    const T ddz = solve(-(rs_g / d));
     const T dds = (-rs_g - ddz) / d;
     const T dz_n = dz + ddz;
     const T ds_n = ds + dds;

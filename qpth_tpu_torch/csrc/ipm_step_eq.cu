@@ -10,10 +10,11 @@
 // float32 it reads R (symmetric: its triangle, 83 MB), Q^-1 G^T (164 MB),
 // S21, W, Q^-1 A^T (82 MB each), S11 and S11^-1 (41 MB each) once, 575 MB,
 // >= 0.18 ms at 3.35 TB/s; its
-// flops (~2/3 m^3 for the factor, a few m^2 and m neq products) take ~0.05 ms
+// flops (~1/3 m^3 for the factor, a few m^2 and m neq products) take ~0.05 ms
 // at 67 TFLOP/s. The equality operands do not fit in shared memory beside
 // the m x m tile, so W is read again for every solve (from L2 when it is
-// shared or recently used); the m dependent pivot steps still set the time.
+// shared or recently used); the panels' chains and barriers still set the
+// time.
 #include "ipm_step_body.cuh"
 
 namespace qpth {

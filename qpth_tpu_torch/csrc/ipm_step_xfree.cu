@@ -7,11 +7,15 @@
 // ipm_step_body.cuh in mode kStepXFree.
 //
 // What bounds it on an H100: at B = 4096, m = 100 it must read R (symmetric:
-// its triangle, 83 MB) plus a few (B, m) vectors, >= 0.028 ms at 3.35 TB/s; its ~2/3 m^3 + 2 m^2
-// (2 + n_correctors) flops per QP take ~0.04 ms at 67 TFLOP/s. As in kernel A
-// the device-memory traffic is already minimal (R read once, nothing but
-// vectors written); the m dependent pivot steps of common.cuh::chol_inv_smem
-// (one barrier each, one m x m tile) set its time.
+// its triangle, 83 MB) plus a few (B, m) vectors, >= 0.028 ms at 3.35 TB/s;
+// its ~1/3 m^3 + 2 m^2 (2 + n_correctors) flops per QP (the factor, R z and
+// the solves; no inverse) take ~0.025 ms at 67 TFLOP/s. The device-memory
+// traffic is near that floor (R read once, whole, for R z; nothing but
+// vectors written). The factor runs on kernel C's 32-row panels and each
+// solve is two substitutions by panels (the body's notes): the 32-step
+// chains of one warp per panel and the block barriers between them
+// (step_barriers: 34 at m = 100, n_correctors = 0) set its time, against 4
+// (float32) or 2 (float64) blocks an SM.
 #include "ipm_step_body.cuh"
 
 namespace qpth {
@@ -57,4 +61,10 @@ extern "C" int qpth_ipm_step_xfree_f64(const void* R, const void* s,
                                        void* stream) {
   return qpth::launch<double>(R, s, z, q, zeta, s_out, z_out, alpha, B, m,
                               r_batched, n_correctors, stream);
+}
+
+// Block barriers one QP of width m passes in this kernel with n_correctors
+// Gondzio passes (ipm_step_body.cuh::step_barriers).
+extern "C" int qpth_ipm_step_barriers(int m, int n_correctors) {
+  return qpth::step_barriers(m, n_correctors);
 }

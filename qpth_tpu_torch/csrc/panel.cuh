@@ -1,7 +1,8 @@
-// Panel helpers of kernels C (csrc/chol.cu) and E (csrc/trinv.cu): one thread
-// block per QP holds one m x m row-major tile (leading dimension m) in shared
-// memory, and the factorization or inversion walks it in panels of 32 rows,
-// one warp's width. The dependent chains run only inside a warp, over a
+// Panel helpers of kernels C (csrc/chol.cu) and E (csrc/trinv.cu) and of the
+// fused IPM steps (csrc/ipm_step_body.cuh): one thread block per QP holds one
+// m x m row-major tile (leading dimension m) in shared memory, and the
+// factorization, its substitutions or the inversion walk it in panels of 32
+// rows, one warp's width. The dependent chains run only inside a warp, over a
 // panel's 32 x 32 diagonal block, in registers and lane shuffles; every warp
 // then works on the block products between panels, each lane on a 4 x 4
 // register tile, so each shared-memory load feeds two multiply-adds instead
@@ -221,6 +222,232 @@ __device__ __forceinline__ void trinv_diag_block(T* Tm, int m, int p0, int w,
 #pragma unroll
   for (int i = 0; i < kPanelWidth; ++i)
     if (i < w && lane <= i) Tm[(p0 + i) * m + p0 + lane] = x[i];
+}
+
+
+__host__ __device__ constexpr int panels(int m) {
+  return (m + kPanelWidth - 1) / kPanelWidth;
+}
+
+// One warp's 4 MI x 32 tile at (rb, cb) of the trailing matrix takes the
+// panel's rank-w update, T[r][c] -= sum_k W[k][r] W[k][c] (W: the panel's
+// rows of Lt, leading dimension m), on and above the diagonal.
+template <typename T, int MI>
+__device__ __forceinline__ void update_tile(T* Tm, const T* W, int m, int w,
+                                            int rb, int cb, int lane) {
+  int r[MI], c[4], ar[MI], bc[4];
+  tile_coords<MI>(rb, cb, lane, r, c);
+#pragma unroll
+  for (int i = 0; i < MI; ++i) ar[i] = min(r[i], m - 1);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) bc[q] = min(c[q], m - 1);
+  T acc[MI][4];
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = Tm[ar[i] * m + bc[q]];
+  tile_update<T, false, MI>(acc, W, W, m, ar, bc, 0, w);
+#pragma unroll
+  for (int i = 0; i < MI; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (r[i] < m && c[q] < m && c[q] >= r[i]) Tm[r[i] * m + c[q]] = acc[i][q];
+}
+
+// r_i -= sum_{k < w} Lt[p0 + k][i] y[p0 + k]: row i below panel p0 takes
+// the panel's solution of the forward substitution L y = r (column i of the
+// panel's rows: consecutive rows on consecutive words).
+template <typename T>
+__device__ __forceinline__ void fwd_update_row(const T* Tm, int m, int p0,
+                                               int w, T* xs, int i) {
+  const T* U = Tm + p0 * m + i;
+  T acc = xs[i];
+  for (int k = 0; k < w; ++k) acc -= U[k * m] * xs[p0 + k];
+  xs[i] = acc;
+}
+
+// One warp's chain of the forward substitution over panel p0's w x w
+// diagonal block, column order, j ascending: y_j = r_j isq_j, r_i -=
+// Lt[p0 + j][p0 + i] y_j (i > j); lane i holds r_i, the pivot's reciprocal
+// is isqv's rsqrt. Row j of the block is read with consecutive lanes on
+// consecutive words. This chain and back_chain are unrolled by 8, not
+// whole: whole, their hoisted loads spilled the fused steps' state
+// (PERF.md §6).
+template <typename T>
+__device__ __forceinline__ void fwd_chain(const T* Tm, int m, int p0, int w,
+                                          const T* isqv, T* xs, int lane) {
+  const bool on = lane < w;
+  const T* Uj = Tm + p0 * m + p0 + (on ? lane : 0);
+  const T isq = on ? isqv[p0 + lane] : T(0);
+  T rv = on ? xs[p0 + lane] : T(0);
+#pragma unroll 8
+  for (int j = 0; j < w; ++j) {
+    if (lane == j) rv *= isq;
+    const T yj = __shfl_sync(kWarpAll, rv, j);
+    if (on && lane > j) rv -= Uj[j * m] * yj;
+  }
+  if (on) xs[p0 + lane] = rv;
+}
+
+// x_i -= sum_{k < w} Lt[i][p0 + k] x[p0 + k]: row i above panel p0 takes
+// the panel's solution.
+template <typename T>
+__device__ __forceinline__ void back_update_row(const T* Tm, int m, int p0,
+                                                int w, T* xs, int i) {
+  const T* Ui = Tm + i * m + p0;
+  T acc = xs[i];
+  for (int k = 0; k < w; ++k) acc -= Ui[k] * xs[p0 + k];
+  xs[i] = acc;
+}
+
+// One warp's chain of the back substitution over panel p0's w x w diagonal
+// block, column order, k descending: x_k = r_k isq_k, r_i -= Lt[i][k] x_k
+// (i < k); lane i holds r_i, the pivot's reciprocal is isqv's rsqrt.
+template <typename T>
+__device__ __forceinline__ void back_chain(const T* Tm, int m, int p0, int w,
+                                           const T* isqv, T* xs, int lane) {
+  const bool on = lane < w;
+  const T* Ui = Tm + (p0 + (on ? lane : 0)) * m + p0;
+  const T isq = on ? isqv[p0 + lane] : T(0);
+  T rv = on ? xs[p0 + lane] : T(0);
+#pragma unroll 8
+  for (int k = w - 1; k >= 0; --k) {
+    if (lane == k) rv *= isq;
+    const T xk = __shfl_sync(kWarpAll, rv, k);
+    if (on && lane < k) rv -= Ui[k] * xk;
+  }
+  if (on) xs[p0 + lane] = rv;
+}
+
+// Lt = chol(T + diag(dinv))^T in place in the tile's upper triangle and
+// diagonal (the strictly lower part is never read), right-looking in panels
+// of 32 rows; with RHS, also y = L^-1 rhs in place in ys. Per panel:
+//   (a) one warp factors the panel's diagonal block in registers, folding the
+//       shift into each pivot when it is reached, the pivots' rsqrt to isqv;
+//   (b) every thread solves one column of the panel's rows beyond the block,
+//       Lt[p, rest] = U_pp^-T T[p, rest], by forward substitution with isqv,
+//       in sub-blocks of 8 rows; with RHS, y's panel is one more column;
+//   (c) the warps apply the rank-32 update T[rest, rest] -= W^T W to the
+//       upper triangle on register tiles: first all eight to the next
+//       panel's diagonal block (4 rows each), then warp 0 factors it, (a)
+//       of the next panel, while the other seven update the rest (4 x 4
+//       per lane) and y's later rows.
+// On entry the tile (and dinv, rhs) are published behind a barrier; it
+// returns behind one, after 3 panels(m) - 1 barriers: 1 after the first (a),
+// then 1 after (b), after the diagonal block's update and after (c), the
+// last panel (b)'s alone. Every element receives its rank-1 updates in pivot
+// order, as in kernels.py::chol_plain, and y's in the order of fwd_chain.
+template <typename T, bool SHIFT, bool RHS>
+__device__ __forceinline__ void factor_panels(T* Tm, int m, const T* dv,
+                                              T* isqv, T* ys, int warp,
+                                              int lane) {
+  if (warp == 0) chol_diag_block<T, SHIFT>(Tm, m, 0, min(kPanelWidth, m), dv, isqv, lane);
+  __syncthreads();
+  for (int p0 = 0; p0 < m; p0 += kPanelWidth) {
+    const int w = min(kPanelWidth, m - p0);
+    const int base = p0 + w, rest = m - base;
+    // (b) the panel's rows beyond the diagonal block, a column per thread;
+    // with rhs, y's panel as one more column.
+    for (int t = threadIdx.x; t < rest + (RHS ? 1 : 0); t += blockDim.x) {
+      const bool is_y = RHS && t == rest;
+      panel_solve_column(Tm, m, p0, w, isqv, is_y ? ys + p0 : Tm + p0 * m + base + t,
+                         is_y ? 1 : m);
+    }
+    __syncthreads();
+    if (rest == 0) break;
+    // (c) the rank-w update of the trailing upper triangle. First the next
+    // panel's diagonal block, 4 rows a warp; then warp 0 factors it, (a) of
+    // the next panel, while the other warps update the rest (and y) in
+    // tiles of 16 x 32.
+    const T* W = Tm + p0 * m;
+    if (4 * warp < min(kPanelWidth, rest))
+      update_tile<T, 1>(Tm, W, m, w, base + 4 * warp, base, lane);
+    __syncthreads();
+    if (warp == 0) {
+      chol_diag_block<T, SHIFT>(Tm, m, base, min(kPanelWidth, rest), dv, isqv, lane);
+    } else {
+      const int ntc = (rest + kTileCols - 1) / kTileCols;
+      const int ntiles = ntc * ((rest + kTileRows - 1) / kTileRows);
+      for (int t = warp - 1; t < ntiles; t += kWarps - 1) {
+        const int tr = t / ntc, tc = t - tr * ntc;
+        // Skip the tiles wholly below the diagonal, and the diagonal block's.
+        if (tc < tr / 2 || (tc == 0 && tr < 2)) continue;
+        update_tile<T, 4>(Tm, W, m, w, base + kTileRows * tr, base + kTileCols * tc, lane);
+      }
+      for (int t = threadIdx.x - 32; RHS && t < rest; t += blockDim.x - 32)
+        fwd_update_row(Tm, m, p0, w, ys, base + t);
+    }
+    __syncthreads();
+  }
+}
+
+// The back substitution Lt x = y in place in xs, panels descending, in
+// column order. Warp 0 runs each panel's chain (back_chain) after applying
+// the panel below to that panel's own rows, while the other warps apply it
+// to the rows above. On entry y is published behind a barrier (warp 0 may
+// also have written the last panel's rows itself); the warps that are not
+// warp 0 may come in late, their first phase is theirs (kernel C writes Lt
+// out there). panels(m) barriers, the last one before return.
+template <typename T>
+__device__ __forceinline__ void back_panels(const T* Tm, int m, const T* isqv,
+                                            T* xs, int warp, int lane) {
+  int p0 = (panels(m) - 1) * kPanelWidth;
+  if (warp == 0) {
+    __syncwarp();
+    back_chain(Tm, m, p0, m - p0, isqv, xs, lane);
+  }
+  __syncthreads();
+  for (; p0 > 0; p0 -= kPanelWidth) {
+    const int w = min(kPanelWidth, m - p0), q0 = p0 - kPanelWidth;
+    if (warp == 0) {
+      back_update_row(Tm, m, p0, w, xs, q0 + lane);
+      __syncwarp();
+      back_chain(Tm, m, q0, kPanelWidth, isqv, xs, lane);
+    } else {
+      for (int i = threadIdx.x - 32; i < q0; i += blockDim.x - 32)
+        back_update_row(Tm, m, p0, w, xs, i);
+    }
+    __syncthreads();
+  }
+}
+
+// x = T^-1 r from the factor in the tile (factor_panels' Lt and isqv):
+// thread i < m gives r_i and gets x_i back (0 past m). The forward
+// substitution L y = r by panels ascending, each panel's chain in warp 0
+// (fwd_chain) after it applied the panel before to the panel's own rows,
+// while the other warps apply it to the rows below; then back_panels. Warp 0
+// holds the first panel's rows itself, so the first chain needs no barrier,
+// and runs the last panel's two chains back to back: 2 panels(m) - 1
+// barriers. xs is the routine's scratch: before its first barrier and after
+// its last, a thread touches only its own element, so calls may follow one
+// another with no barrier between. Not inlined: the fused steps keep their
+// per-thread state across each call, and a register allocation of its own
+// leaves the chains theirs (PERF.md §6).
+template <typename T>
+__device__ __noinline__ T solve_panels(const T* Tm, int m, const T* isqv, T* xs, T r,
+                          int warp, int lane) {
+  const int i = threadIdx.x;
+  if (i < m) xs[i] = r;
+  if (warp == 0) {
+    __syncwarp();
+    fwd_chain(Tm, m, 0, min(kPanelWidth, m), isqv, xs, lane);
+  }
+  const int last = (panels(m) - 1) * kPanelWidth;
+  for (int p0 = 0; p0 < last; p0 += kPanelWidth) {
+    __syncthreads();
+    const int n0 = p0 + kPanelWidth;  // the next panel
+    if (warp == 0) {
+      const int wn = min(kPanelWidth, m - n0);
+      if (lane < wn) fwd_update_row(Tm, m, p0, kPanelWidth, xs, n0 + lane);
+      __syncwarp();
+      fwd_chain(Tm, m, n0, wn, isqv, xs, lane);
+    } else {
+      for (int t = n0 + i; t < m; t += blockDim.x - 32)  // rows past n0 + 31
+        fwd_update_row(Tm, m, p0, kPanelWidth, xs, t);
+    }
+  }
+  back_panels(Tm, m, isqv, xs, warp, lane);
+  return i < m ? xs[i] : T(0);
 }
 
 }  // namespace qpth

@@ -32,8 +32,10 @@ upper triangular with exact zeros below the diagonal.
 Dispatch is by device and nothing else: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel, and a failed build or launch
 raises. The plain versions compute the same recurrence as the kernels
-(pivot by pivot, ``rsqrt`` pivots, NaN for a non-SPD lane) and are what the
-CPU tests and ``chip_smoke.py`` hold the kernels against.
+(pivot by pivot, ``rsqrt`` pivots, NaN for a non-SPD lane; the fused steps'
+kernels substitute with T's factor where their plain versions apply its
+inverse) and are what the CPU tests and ``chip_smoke.py`` hold the kernels
+against.
 
 ``LAUNCHES`` counts kernel launches per variant; a wrapper adds one only
 where it launches its kernel.
@@ -88,8 +90,9 @@ def reset_launches() -> None:
 
 def fits(m: int, dtype, nz: int = 0, neq: int = 0) -> bool:
     """Whether one QP's working set fits a thread block: one m x m tile
-    (T's trailing block above the diagonal, inv(L)'s rows below it; see
-    csrc/common.cuh), SMEM_VECTORS m-vectors and the fused steps'
+    (kernel A: T's trailing block above the diagonal, inv(L)'s rows below
+    it, csrc/common.cuh; the fused steps: R, then T's factor on 32-row
+    panels, csrc/panel.cuh), SMEM_VECTORS m-vectors and the fused steps'
     RED_WORDS of reduction scratch within 227 KB, and m <= THREADS
     (float32: m <= 237, leaving 39 words; float64: m <= 166, leaving
     164 words). The fused steps with the direct x update (``ipm_step``,
@@ -379,10 +382,16 @@ def ipm_step_xfree(R, s, z, q, n_correctors: int = 0):
     Replaces the TPU kernel
     ``qpth_tpu/ops/pallas/lanes.py::ipm_step_xfree_lanes``. On the H100 it
     is bound by bytes: R's triangle read once plus a few (B, m) vectors
-    (>= 0.028 ms at B = 4096, m = 100, f32). One block per QP: T and
-    inv(L) in one shared-memory tile, every m-vector in registers (thread
-    i holds element i), the per-QP min/sum reductions as block reductions;
-    see csrc/ipm_step_body.cuh, which the three fused steps share."""
+    (>= 0.028 ms at B = 4096, m = 100, f32). One block per QP keeps R in
+    one shared-memory tile and factors T there on kernel C's 32-row panels
+    (one warp's chain per diagonal block, the trailing updates on register
+    tiles), the predictor's RHS riding in the factor as one more column;
+    the corrector and each Gondzio pass are a forward and a back
+    substitution by panels from that factor. No inverse is formed. Every
+    m-vector sits in registers (thread i holds element i), the per-QP
+    min/sum reductions are block reductions; see csrc/ipm_step_body.cuh,
+    which the three fused steps share. A lane whose T is not SPD gets NaN
+    from its factor's ``rsqrt`` and freezes alone."""
     B, m = s.shape
     _check("ipm_step_xfree", R, (s, z, q), B, m)
     if R.device.type == "cpu":

@@ -21,6 +21,8 @@ PyTorch versions.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import scaling as scaling_mod
@@ -178,6 +180,91 @@ class _QPCore(torch.autograd.Function):
         return grads + (None, None, None, None)
 
 
+def _kkt_directions(factors, Gb, Ab, zhat, lam, s, dl_dz, config):
+    """The backward's KKT solve on ``factors``: the directions (dx, dlam,
+    dnu) in the problem's own coordinates, dnu None without equality
+    rows."""
+    nineq = Gb.shape[-2]
+    neq = Ab.shape[-2] if Ab is not None else 0
+    # Numerical-safety clamp of upstream qpth's backward.
+    c = config.grad_clamp
+    d = torch.clamp(lam, min=c) / torch.clamp(s, min=c)
+
+    # Equilibrated factors solve the scaled KKT system: map the cotangent
+    # and the complementarity diagonal in, the directions out. Only the
+    # substitution-mode branch reads the (scaled) G and A.
+    sc = factors.scaling
+    Gs, As = Gb, Ab
+    if sc is not None:
+        d = d * (sc.c / (sc.RG * sc.RG))
+        dl_dz = dl_dz * (sc.c * sc.E)
+        if factors.invQ_GT is None:
+            Gs = scaling_mod.scale_G(Gb, sc)
+            As = scaling_mod.scale_A(Ab, sc)
+
+    backend = kkt_ops.resolve_backend(config.use_pallas, zhat.dtype, nineq,
+                                      zhat.device)
+    fs = backend.prepare(factors)
+    if fs.invQ_GT is not None:
+        # Inverse mode: the RHS and back-substitution products fold into
+        # the cached Q^-1 G^T / Q^-1 A^T; G and A are never read.
+        iQ_dl = kkt_ops.apply_invQ(fs, dl_dz)
+        rhs_T = -btmv(fs.invQ_GT, dl_dz)              # -G Q^-1 dl
+        if neq > 0:
+            u = bmv(fs.invS11, -btmv(fs.invQ_AT, dl_dz))
+            rhs_T = rhs_T - bmv(fs.S21, u)
+        _, dlam = backend.factor_solve(fs.R, d, rhs_T)
+        dx = -iQ_dl - bmv(fs.invQ_GT, dlam)
+        dnu = None
+        if neq > 0:
+            dnu = u - bmv(fs.W, dlam)
+            dx = dx - bmv(fs.invQ_AT, dnu)
+    else:
+        rhs_T, u = kkt_ops.prepare_rhs_kkt(fs, d, Gs, As, dl_dz, None,
+                                           None, None, backend.q_solve2)
+        _, dz_sol = backend.factor_solve(fs.R, d, rhs_T)
+        dx, _, dlam, dnu = kkt_ops.backsub_kkt(
+            fs, dz_sol, u, d, Gs, As, dl_dz, None, backend.q_solve2)
+    if sc is not None:
+        dx = dx * sc.E
+        dlam = dlam * (sc.RG / sc.c)
+        if neq > 0:
+            dnu = dnu * (sc.RA / sc.c)
+    return dx, dlam, dnu
+
+
+def _redo_broken_lanes(dx, dlam, dnu, Qb, Gb, Ab, zhat, lam, s, dl_dz,
+                       config):
+    """Where R (G Q^-1 G^T on the null space of A) has rank at most
+    nz - neq < nineq, T = R + diag(s / lam) is positive definite on R's
+    null space through its diagonal alone. On a lane whose forward ends
+    with more constraints pinned than R's rank, s / lam there (1e-7 and
+    below) falls under R's rounding below float64: T rounds to not SPD,
+    and the lane's factor, and so its directions, come back NaN. Such
+    lanes alone are solved again from factors built in float64 at the same
+    point (zhat, lam, s); the others keep their directions bit for bit.
+    One host read."""
+    with span("qpth.sync"):
+        idx = (~torch.isfinite(dlam).all(dim=1)).nonzero().squeeze(1)
+    if idx.numel() == 0:
+        return dx, dlam, dnu
+
+    def lanes(v):
+        if v is None:
+            return None
+        v = v if v.shape[0] == 1 else v[idx]
+        return v.to(torch.float64)
+
+    # These lanes are this process's alone: no batch-sharded reduction.
+    config = dataclasses.replace(config, process_group=None)
+    Q64, G64, A64 = lanes(Qb), lanes(Gb), lanes(Ab)
+    redo = _kkt_directions(_build_factors(Q64, G64, A64, config), G64, A64,
+                           lanes(zhat), lanes(lam), lanes(s), lanes(dl_dz),
+                           config)
+    return tuple(None if v is None else v.index_copy(0, idx, r.to(v.dtype))
+                 for v, r in zip((dx, dlam, dnu), redo))
+
+
 def _backward(ctx, dl_dz):
     """One KKT solve on the cached factors (RHS (dl/dz, 0, 0, 0)); returns
     the cotangents of (Qb, pb, Gb, hb, Ab, bb)."""
@@ -192,57 +279,18 @@ def _backward(ctx, dl_dz):
     config = ctx.config
     B_global, p_unb, h_unb, b_unb = ctx.meta
     B = dl_dz.shape[0]
-    nineq = Gb.shape[-2]
     neq = Ab.shape[-2] if Ab is not None else 0
     factors = ctx.factors
     if factors is None:
         factors = _build_factors(Qb, Gb, Ab, config)
 
     with span("qpth.backward.solve"):
-        # Numerical-safety clamp of upstream qpth's backward.
-        c = config.grad_clamp
-        d = torch.clamp(lam, min=c) / torch.clamp(s, min=c)
-
-        # Equilibrated factors solve the scaled KKT system: map the
-        # cotangent and the complementarity diagonal in, the directions
-        # out. Only the substitution-mode branch reads the (scaled) G and A.
-        sc = factors.scaling
-        Gs, As = Gb, Ab
-        if sc is not None:
-            d = d * (sc.c / (sc.RG * sc.RG))
-            dl_dz = dl_dz * (sc.c * sc.E)
-            if factors.invQ_GT is None:
-                Gs = scaling_mod.scale_G(Gb, sc)
-                As = scaling_mod.scale_A(Ab, sc)
-
-        backend = kkt_ops.resolve_backend(config.use_pallas, zhat.dtype,
-                                          nineq, zhat.device)
-        fs = backend.prepare(factors)
-        if fs.invQ_GT is not None:
-            # Inverse mode: the RHS and back-substitution products fold
-            # into the cached Q^-1 G^T / Q^-1 A^T; G and A are never read.
-            iQ_dl = kkt_ops.apply_invQ(fs, dl_dz)
-            rhs_T = -btmv(fs.invQ_GT, dl_dz)              # -G Q^-1 dl
-            if neq > 0:
-                u = bmv(fs.invS11, -btmv(fs.invQ_AT, dl_dz))
-                rhs_T = rhs_T - bmv(fs.S21, u)
-            _, dlam = backend.factor_solve(fs.R, d, rhs_T)
-            dx = -iQ_dl - bmv(fs.invQ_GT, dlam)
-            dnu = None
-            if neq > 0:
-                dnu = u - bmv(fs.W, dlam)
-                dx = dx - bmv(fs.invQ_AT, dnu)
-        else:
-            rhs_T, u = kkt_ops.prepare_rhs_kkt(fs, d, Gs, As, dl_dz, None,
-                                               None, None, backend.q_solve2)
-            _, dz_sol = backend.factor_solve(fs.R, d, rhs_T)
-            dx, _, dlam, dnu = kkt_ops.backsub_kkt(
-                fs, dz_sol, u, d, Gs, As, dl_dz, None, backend.q_solve2)
-        if sc is not None:
-            dx = dx * sc.E
-            dlam = dlam * (sc.RG / sc.c)
-            if neq > 0:
-                dnu = dnu * (sc.RA / sc.c)
+        dx, dlam, dnu = _kkt_directions(factors, Gb, Ab, zhat, lam, s,
+                                        dl_dz, config)
+        nz, nineq = Qb.shape[-1], Gb.shape[-2]
+        if dt != torch.float64 and nineq > nz - neq:
+            dx, dlam, dnu = _redo_broken_lanes(dx, dlam, dnu, Qb, Gb, Ab,
+                                               zhat, lam, s, dl_dz, config)
 
     with span("qpth.backward.grads"):
         dQ = 0.5 * (bger(dx, zhat) + bger(zhat, dx))

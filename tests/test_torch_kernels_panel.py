@@ -28,6 +28,8 @@ does, so in float64 the model's Lt equals the plain version's to the last
 bit; its solve and the triangular inverse add in other orders.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import numpy.testing as npt
@@ -85,10 +87,11 @@ def _panel_solve(U, isq, X):
             X[:, s0 + ws:] -= U[:, j, s0 + ws:].unsqueeze(-1) * X[:, j:j + 1]
 
 
-def chol_model(R, dinv=None, rhs=None, barriers=None):
+def chol_model(R, dinv=None, rhs=None, barriers=None, isqv=None):
     """Kernel C's order of operations: Lt, or (Lt, x) with ``rhs``. Each
     block barrier of the kernel (``__syncthreads()``) is appended to
-    ``barriers`` at the point where the kernel passes it."""
+    ``barriers`` at the point where the kernel passes it; ``isqv``, a (B, m)
+    tensor, receives the pivots' rsqrt."""
     bar = [] if barriers is None else barriers
     m = R.shape[-1]
     vecs = [v for v in (dinv, rhs) if v is not None]
@@ -96,7 +99,8 @@ def chol_model(R, dinv=None, rhs=None, barriers=None):
     nan = torch.tensor(float("nan"), dtype=R.dtype)
     upper = torch.ones(m, m, dtype=torch.bool).triu()
     tile = torch.where(upper, R.expand(B, m, m), nan)     # staged: upper only
-    isqv = torch.zeros(B, m, dtype=R.dtype)
+    if isqv is None:
+        isqv = torch.zeros(B, m, dtype=R.dtype)
     ys = rhs.clone() if rhs is not None else None
     bar.append("staged")
     _diag_block(tile, 0, min(P, m), dinv, isqv)
@@ -380,3 +384,29 @@ def test_fit_predicates_follow_the_launchers():
         # float32 n = 200, 239 or float64 n = 150, 168, inside chol_fits.
         for n in ((200, 239) if dtype == torch.float32 else (150, 168)):
             assert 2 * n * (n | 1) * elt > 227 * 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fits_is_unchanged_by_the_panel_step(dtype):
+    """The fused steps factor on the panels inside the working set they
+    had (csrc/common.cuh::smem_bytes: the m x m tile, 8 m-vectors, the
+    nz-vector and 4 neq-vectors, beside 8 words of reduction scratch), so
+    kernels.fits admits exactly what it admitted with the factor-inverse:
+    m <= 237 in float32 and m <= 166 in float64 at nz = neq = 0, and path
+    8c's shape (nineq = 100, nz = 512, neq = 64)."""
+    src = (Path(kernels.__file__).resolve().parents[2] / "csrc"
+           / "common.cuh").read_text()
+    for name, value in (("kSmemVectors", kernels.SMEM_VECTORS),
+                        ("kSmemEqVectors", kernels.SMEM_EQ_VECTORS),
+                        ("kThreads", kernels.THREADS)):
+        assert f"constexpr int {name} = {value};" in src
+    elt = dtype.itemsize
+    for m in range(1, 300):
+        for nz, neq in ((0, 0), (7, 8), (100, 0), (100, 50), (512, 64)):
+            words = m * m + 8 * m + 8 + nz + 4 * neq
+            assert kernels.fits(m, dtype, nz, neq) == (
+                m <= 256 and words * elt <= 227 * 1024)
+    largest = 237 if dtype == torch.float32 else 166
+    assert kernels.fits(largest, dtype)
+    assert not kernels.fits(largest + 1, dtype)
+    assert kernels.fits(100, dtype, 512, 64)

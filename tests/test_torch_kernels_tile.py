@@ -1,6 +1,8 @@
 """A CPU model of the one-tile factor-inverse recurrence of
-``qpth_tpu_torch/csrc/common.cuh::chol_inv_smem`` (kernel A, the fused IPM
-steps and kernel 11 run it), held to the plain version ``factor_inv_plain``.
+``qpth_tpu_torch/csrc/common.cuh::chol_inv_smem`` (kernel A and kernel 11
+run it; the fused IPM steps factor on panels, see
+``test_torch_kernels_step_panel.py``), held to the plain version
+``factor_inv_plain``.
 
 The kernel runs only on the card, where ``chip_smoke.py`` holds it to the
 plain version. This model runs the same storage scheme step by step in
