@@ -670,11 +670,12 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
             # exact elementwise transform d' = d / (1 + reg d). reg = 0 leaves
             # a healthy lane bit-identical.
             d = d / (1.0 + reg.unsqueeze(-1) * d)
-            if fast:
-                fac, ds_a, dz_a, dy_a = fast_predictor(z, y, d)
-            else:
-                fac, dx_a, ds_a, dz_a, dy_a = kkt_factor_solve(d, rx, z, rz,
-                                                               ry)
+            with span("qpth.ipm.step.factor"):
+                if fast:
+                    fac, ds_a, dz_a, dy_a = fast_predictor(z, y, d)
+                else:
+                    fac, dx_a, ds_a, dz_a, dy_a = kkt_factor_solve(
+                        d, rx, z, rz, ry)
 
             def step_min(dz_, ds_):
                 return torch.minimum(_step_to_boundary(z, dz_),
@@ -686,13 +687,14 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
             sig = (t1 / t2) ** 3
 
             rs_c = ((-mu * sig).unsqueeze(-1) + ds_a * dz_a) / s
-            if fast:
-                ds_c, dz_c, dy_c = fast_corrector(fac, rs_c, d)
-                dx = None                  # assembled after the corrections
-            else:
-                dx_c, ds_c, dz_c, dy_c = kkt_solve(fac, d, None, rs_c, None,
-                                                   None)
-                dx = dx_a + dx_c
+            with span("qpth.ipm.step.solve"):
+                if fast:
+                    ds_c, dz_c, dy_c = fast_corrector(fac, rs_c, d)
+                    dx = None              # assembled after the corrections
+                else:
+                    dx_c, ds_c, dz_c, dy_c = kkt_solve(fac, d, None, rs_c,
+                                                       None, None)
+                    dx = dx_a + dx_c
             ds, dz = ds_a + ds_c, dz_a + dz_c
             dy = (dy_a + dy_c) if neq > 0 else None
 
@@ -705,11 +707,12 @@ def solve(Q, p, G, h, A, b, factors: kkt_ops.KKTFactors,
                 mu_t = (sig * mu).unsqueeze(-1)
                 rs_g = (v - torch.minimum(torch.maximum(v, 0.1 * mu_t),
                                           10.0 * mu_t)) / s
-                if fast:
-                    dds, ddz, ddy = fast_corrector(fac, rs_g, d)
-                else:
-                    ddx, dds, ddz, ddy = kkt_solve(fac, d, None, rs_g, None,
-                                                   None)
+                with span("qpth.ipm.step.solve"):
+                    if fast:
+                        dds, ddz, ddy = fast_corrector(fac, rs_g, d)
+                    else:
+                        ddx, dds, ddz, ddy = kkt_solve(fac, d, None, rs_g,
+                                                       None, None)
                 dz_n, ds_n = dz + ddz, ds + dds
                 a_n = torch.minimum(step_min(dz_n, ds_n), one)
                 acc = (a_n > a_g).unsqueeze(-1)

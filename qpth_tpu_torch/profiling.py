@@ -26,12 +26,16 @@ from torch.autograd.profiler import record_function
 #: ``qpth.ipm.*`` sit inside ``qpth.solve`` (``qpth.prefactor`` also under
 #: ``prefactor_qp`` and a backward that rebuilds the factors); score, exit
 #: and step inside ``qpth.ipm.loop``, once per iteration (no step on the
-#: iteration that exits); ``qpth.backward.*`` inside ``qpth.backward``;
+#: iteration that exits); inside a composed step (no fused kernel),
+#: ``qpth.ipm.step.factor`` around the factor of T with its first solve
+#: and ``qpth.ipm.step.solve`` around each further solve on that factor;
+#: ``qpth.backward.*`` inside ``qpth.backward``;
 #: ``qpth.sync`` around each device-to-host read, inside whichever span
 #: makes it, so its count is the number of reads and its length the
 #: host's wait.
 SPANS = ("qpth.solve", "qpth.prefactor", "qpth.ipm.init", "qpth.ipm.loop",
          "qpth.ipm.score", "qpth.ipm.exit", "qpth.ipm.step",
+         "qpth.ipm.step.factor", "qpth.ipm.step.solve",
          "qpth.ipm.finish", "qpth.backward", "qpth.backward.solve",
          "qpth.backward.grads", "qpth.sync")
 

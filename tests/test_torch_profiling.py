@@ -83,36 +83,57 @@ PARENTS = {
     "qpth.ipm.score": {"qpth.ipm.loop"},
     "qpth.ipm.exit": {"qpth.ipm.loop"},
     "qpth.ipm.step": {"qpth.ipm.loop"},
+    "qpth.ipm.step.factor": {"qpth.ipm.step"},
+    "qpth.ipm.step.solve": {"qpth.ipm.step"},
     "qpth.backward": {None},
     "qpth.backward.solve": {"qpth.backward"},
     "qpth.backward.grads": {"qpth.backward"},
 }
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_spans_of_a_solve_and_its_backward(dtype):
+#: The spans of a composed step (``core/pdipm.py::composed_step``), which a
+#: fused step records none of.
+COMPOSED = ("qpth.ipm.step.factor", "qpth.ipm.step.solve")
+
+
+@pytest.mark.parametrize("dtype, use_pallas, composed", [
+    (torch.float32, "auto", False),      # inverse mode: the fused step
+    (torch.float64, "auto", True),       # substitution mode: composed
+    (torch.float32, "blocked", True),    # inverse mode, no fused kernel
+], ids=["f32-fused", "f64-composed", "f32-blocked-composed"])
+def test_spans_of_a_solve_and_its_backward(dtype, use_pallas, composed):
     """A forward+backward records the span tree of ``profiling.SPANS``:
     one ``qpth.ipm.score`` and ``qpth.ipm.exit`` per iteration, a step on
     each but the one that exits, and one ``qpth.sync`` per host read: the
     SPD check, the Ruiz probe (below float64 only), one a loop iteration
-    and the INACC check."""
+    and the INACC check. A fused step records no span inside it; a
+    composed one records one ``qpth.ipm.step.factor`` (the factor of T
+    with its first solve) and a ``qpth.ipm.step.solve`` for each further
+    solve (the corrector and each Gondzio pass)."""
+    cfg = qt.SolverConfig(use_pallas=use_pallas)
     args = [a.to(dtype) for a in _qp()]
-    its = int(qt.solve_qp_full(*args, device="cpu").stats.iterations)
-    assert its < qt.SolverConfig().max_iter
+    its = int(qt.solve_qp_full(*args, config=cfg,
+                               device="cpu").stats.iterations)
+    assert its < cfg.max_iter
 
     leaves = [a.clone().requires_grad_(True) for a in args]
 
     def fwd_bwd():
-        z = qt.solve_qp(*leaves, device="cpu")
+        z = qt.solve_qp(*leaves, config=cfg, device="cpu")
         z.sum().backward()
         return z
 
     _, ev = _spans(fwd_bwd)
     names = [e.name for e in ev]
-    assert set(names) == set(profiling.SPANS)
+    expected = [n for n in profiling.SPANS if composed or n not in COMPOSED]
+    assert set(names) == set(expected)
     count = {n: names.count(n) for n in profiling.SPANS}
     assert count["qpth.ipm.score"] == count["qpth.ipm.exit"] == its
     assert count["qpth.ipm.step"] == its - 1
+    if composed:
+        assert count["qpth.ipm.step.factor"] == its - 1
+        assert count["qpth.ipm.step.solve"] == (its - 1) * (
+            1 + cfg.n_correctors)
     for n in ("qpth.solve", "qpth.prefactor", "qpth.ipm.init",
               "qpth.ipm.loop", "qpth.ipm.finish", "qpth.backward",
               "qpth.backward.solve", "qpth.backward.grads"):
@@ -124,12 +145,22 @@ def test_spans_of_a_solve_and_its_backward(dtype):
     for e in ev:
         if e.name != "qpth.sync":
             assert _owner(e) in PARENTS[e.name], (e.name, _owner(e))
-    # The phases run in order and the backward after the forward.
-    first = {n: names.index(n) for n in profiling.SPANS}
+    # The phases run in order and the backward after the forward; in a
+    # composed step the factor comes before its further solves.
+    first = {n: names.index(n) for n in expected}
     assert (first["qpth.solve"] < first["qpth.prefactor"]
             < first["qpth.ipm.init"] < first["qpth.ipm.loop"]
             < first["qpth.ipm.finish"] < first["qpth.backward"]
             < first["qpth.backward.solve"] < first["qpth.backward.grads"])
+    if composed:
+        steps = [e for e in ev if e.name == "qpth.ipm.step"]
+        for step in steps:
+            inner = [e.name for e in ev if e.name in COMPOSED
+                     and e.cpu_parent is not None
+                     and e.cpu_parent.id == step.id]
+            assert inner == (["qpth.ipm.step.factor"]
+                             + ["qpth.ipm.step.solve"]
+                             * (1 + cfg.n_correctors)), inner
 
 
 def test_prefactor_span_outside_a_solve():
