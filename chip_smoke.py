@@ -119,7 +119,17 @@ GRAD_CLAMP5 = 1e-5
 # beside the gate, holds every step of the kernel against its plain version
 # and float64, and holds the two steps to each other on every lane in
 # float64; tests/test_torch_diag_f32.py pins the effect in the JAX package.
+# z is set by rounding on fewer lanes (0-2 of 4096 over seeds 0-3 of the
+# draw): there the fused step may part only where the witness parts too.
 DUAL_LANES_OFF = B // 200
+# Path 3's float64 card-vs-CPU check holds z and the gradients on the lanes
+# whose CPU solution keeps max(s, lam) >= P3_MARGIN on every constraint
+# (43-57 of each 64). Over 2048 lanes of its draw, two float64 orders of
+# operations on the CPU (kernel A's plain version and its panel order)
+# part beyond the limits only on lanes below 1.7e-3, by up to 2e-3; on
+# the lanes above 5e-3 the card stays within 3e-9 (z) and 7.4e-8 (the
+# gradients) of the CPU over 16 slices of 64 lanes.
+P3_MARGIN = 5e-3
 REPS = 20
 
 #: Published peaks (memory bytes/s, float32 and float64 non-tensor FLOP/s)
@@ -2375,9 +2385,9 @@ def main():
     del args, got
 
     # The largest m of kernels.fits (B = 64), with an nz and neq that fill
-    # the rest of the block: kernel A's three variants on the one-tile
-    # recurrence (common.cuh::chol_inv_smem; lane 3 of the batched R not
-    # SPD: NaN in that lane alone) and the three fused-step modes on the
+    # the rest of the block: kernel A's three variants on the panels
+    # (factor_inv.cu; lane 3 of the batched R not SPD: NaN in that lane
+    # alone) and the three fused-step modes on the
     # panels (lane 5's T not SPD: frozen), R batched and shared; kernel 11
     # at a width of M beyond the old two-tile fit, with the largest n beside
     # it.
@@ -2780,10 +2790,14 @@ def main():
               f"error {med_:.3e} > {limit}")
         return med_
 
-    def card_vs_cpu(tag, arrs_np, config, names, same_iterations=True):
+    def card_vs_cpu(tag, arrs_np, config, names, same_iterations=True,
+                    margin=None):
         """float64 on the card against float64 on the CPU over N_F64_CPU
         lanes: z and nu to 1e-8, the gradients named in ``names`` to 1e-7
-        (relative to the largest entry)."""
+        (relative to the largest entry). With ``margin``, only on the lanes
+        clear of the active-set threshold: those whose CPU solution keeps
+        every constraint's max(s, lam) at or above it (the named gradients
+        must then be per lane)."""
         out = {}
         for device in (dev, "cpu"):
             arrs = tensors(arrs_np, torch.float64, device, N_F64_CPU)
@@ -2791,11 +2805,18 @@ def main():
             _, g_ = grads_of(arrs, config, device)
             out[device] = (sol_, g_)
         (sc_, gc_), (sh_, gh_) = out[dev], out["cpu"]
-        ez = rel(sc_.z.cpu(), sh_.z)
-        enu = rel(sc_.nu.cpu(), sh_.nu) if sh_.nu.shape[1] else 0.0
-        eg = {n: rel(gc_[i].cpu(), gh_[i])
+        on = torch.ones(N_F64_CPU, dtype=torch.bool)
+        if margin is not None:
+            on = torch.maximum(sh_.s, sh_.lam).amin(dim=1) >= margin
+        ez = rel(sc_.z.cpu()[on], sh_.z[on])
+        enu = rel(sc_.nu.cpu()[on], sh_.nu[on]) if sh_.nu.shape[1] else 0.0
+        eg = {n: rel(gc_[i].cpu()[on], gh_[i][on]) if margin is not None
+              else rel(gc_[i].cpu(), gh_[i])
               for i, n in enumerate("QpGhAb"[:len(gc_)]) if n in names}
-        print(f"# {tag}: f64 card vs CPU over {N_F64_CPU} lanes: z "
+        lanes = (f"{int(on.sum())} of {N_F64_CPU} lanes (max(s, lam) >= "
+                 f"{margin:g})" if margin is not None
+                 else f"{N_F64_CPU} lanes")
+        print(f"# {tag}: f64 card vs CPU over {lanes}: z "
               f"{ez:.3e}, nu {enu:.3e}, gradients "
               + ", ".join(f"{n} {e:.3e}" for n, e in eg.items())
               + f"; iterations {int(sc_.stats.iterations)} / "
@@ -2806,7 +2827,11 @@ def main():
         if same_iterations:
             check(int(sc_.stats.iterations) == int(sh_.stats.iterations),
                   f"{tag}: f64 card vs CPU iterations differ")
-        return dict(z=ez, nu=enu, grads=eg)
+        if margin is not None:
+            check(int(on.sum()) >= N_F64_CPU // 2,
+                  f"{tag}: fewer than half the lanes clear of the "
+                  f"active-set threshold")
+        return dict(z=ez, nu=enu, grads=eg, lanes=int(on.sum()))
 
     path_launches, path_facts = {}, {}
 
@@ -2978,14 +3003,23 @@ def main():
                       (Q, p2, G, h), cfg64)
     path_launches["path3_direct_x"] = dict(resid_every_1=l3,
                                            coeff_x_false=l3c, warm=l3w)
+    # Float64 card against CPU with the residuals read every iteration, on
+    # lanes clear of both thresholds. These lanes' residual floor (1e-10 to
+    # 3e-9) straddles eps = 1e-9, where rounding decided the exit on either
+    # side (the card matched the CPU's iteration count on 28 of 64 slices of
+    # 64 lanes); at the float64 default eps = 1e-12, below every floor, both
+    # run max_iter. A lane with a weakly active or weakly inactive
+    # constraint (max(s, lam) below P3_MARGIN on the CPU) has z and
+    # gradients that rounding decides: left out and counted.
     cfg64_r1 = qt.SolverConfig(solve_method="inverse", resid_every=1,
-                               eps=1e-9, refine_steps=0, check_Q_spd=False)
+                               eps=1e-12, refine_steps=0, check_Q_spd=False)
     path_facts["path3_direct_x"] = dict(
         iterations=dict(resid_every_1=its3, coeff_x_false=its3c,
                         warm=its3w, cold=its3k),
         f32_median_rel_err=dict(resid_every_1=med3, warm=med3w),
-        card_vs_cpu=card_vs_cpu("phase 8 (path 3) resid_every=1, eps=1e-9",
-                                (Q, p, G, h), cfg64_r1, "Qp"))
+        card_vs_cpu=card_vs_cpu("phase 8 (path 3) resid_every=1, eps=1e-12",
+                                (Q, p, G, h), cfg64_r1, "Qp",
+                                margin=P3_MARGIN))
 
     # ---- phase 9 (path 4): the float64 default (substitution mode) ----
     cfg_d64 = qt.SolverConfig(check_Q_spd=False)
@@ -3280,9 +3314,10 @@ def main():
           "plain version's")
 
     # Float32 agreement with (a) at the reference's fused-vs-composed
-    # tolerance: z on every lane, lam and nu on all but DUAL_LANES_OFF.
-    # Beside it the witness: the composed step against itself with A given
-    # per lane (other products) and with p moved by one ulp.
+    # tolerance: z on every lane where the witness holds it, lam and nu on
+    # all but DUAL_LANES_OFF. The witness: the composed step against itself
+    # with A given per lane (other products) and with p moved by one ulp; a
+    # lane whose z it parts is set by rounding, not by the step.
     def excess(a_, b_):
         """Per lane: how far |a - b| exceeds 2e-4 + 1e-3 |b| (<= 0: within
         the tolerance)."""
@@ -3317,10 +3352,14 @@ def main():
                   f"{float((getattr(sol5a, k)[i].double() - ref).abs().max()):.3e}, "
                   f"|fused - f64| "
                   f"{float((getattr(sol5b, k)[i].double() - ref).abs().max()):.3e}")
+    z_set = set().union(*(v["z"] for v in wit.values()))
+    z_held = [i for i in off["z"] if i not in z_set]
+    print(f"# phase 9b (path 5b): z lanes parted where the witness holds "
+          f"z: {z_held}")
     off = {k: len(v) for k, v in off.items()}
     wit = {k: {kk: len(vv) for kk, vv in v.items()} for k, v in wit.items()}
-    check(off["z"] == 0 and off["lam"] <= DUAL_LANES_OFF
-          and off["nu"] <= DUAL_LANES_OFF,
+    check(not z_held and off["z"] <= DUAL_LANES_OFF
+          and off["lam"] <= DUAL_LANES_OFF and off["nu"] <= DUAL_LANES_OFF,
           "path 5b: the fused step disagrees with the composed one")
     del d64, lane_A, ulp
 
@@ -4379,15 +4418,19 @@ def main():
         return out
 
     cf32, cf64 = chol_facts(torch.float32), chol_facts(torch.float64)
-    # Block barriers one QP passes in kernels C and E and in the x-free
-    # step (constants of the sources: csrc/chol.cu::chol_barriers,
+    # Block barriers one QP passes in kernels A, C and E and in the x-free
+    # step (constants of the sources: csrc/factor_inv.cu::
+    # factor_inv_barriers, csrc/chol.cu::chol_barriers,
     # csrc/trinv.cu::trinv_barriers, csrc/ipm_step_body.cuh::
     # step_barriers; the other step modes pass the dx pass's 2 more, and
     # the equality algebra's).
+    fi_bar = build.load("factor_inv").qpth_factor_inv_barriers
     chol_bar = build.load("chol").qpth_chol_barriers
     trinv_bar = build.load("trinv").qpth_trinv_barriers
     step_bar = build.load("ipm_step_xfree").qpth_ipm_step_barriers
-    print(f"# phase 10: block barriers per QP at m={m}: kernel C "
+    print(f"# phase 10: block barriers per QP at m={m}: kernel A "
+          f"{fi_bar(m, 0, 0)} (with rhs {fi_bar(m, 1, 0)}, with rz "
+          f"{fi_bar(m, 1, 1)}), kernel C "
           f"{chol_bar(m, 0)} (with rhs {chol_bar(m, 1)}), kernel E "
           f"{trinv_bar(m)}, x-free step {step_bar(m, 0)} (with 2 "
           f"Gondzio passes {step_bar(m, 2)})")

@@ -76,20 +76,6 @@ template <typename T> struct LaneBlocks;
 template <> struct LaneBlocks<float> { static constexpr int value = 8; };
 template <> struct LaneBlocks<double> { static constexpr int value = 6; };
 
-// One element copied from device to shared memory by cp.async (zero-filled
-// where ok is false: no byte is read then), so that every copy of a block is
-// in flight at once and none holds a register.
-template <typename T>
-__device__ __forceinline__ void cp_async_elt(T* dst, const T* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-               "l"(src), "n"(sizeof(T)), "r"(ok ? int(sizeof(T)) : 0));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // tile[a][b] = U[32 s + a][32 t + b] (U = L^T; zero beyond n and, in a
 // diagonal block, across the diagonal), copied from F (Lt if !LOWER, L if
 // LOWER) by coalesced rows: rows of Lt as they are, rows of L transposed.

@@ -41,6 +41,20 @@ cudaError_t set_smem(Kernel kern, size_t smem) {
                               int(cudaSharedmemCarveoutMaxShared));
 }
 
+// One element copied from device to shared memory by cp.async (zero-filled
+// where ok is false: no byte is read then), so that every copy of a block is
+// in flight at once and none holds a register.
+template <typename T>
+__device__ __forceinline__ void cp_async_elt(T* dst, const T* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(T)), "r"(ok ? int(sizeof(T)) : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
 __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
 
@@ -115,7 +129,10 @@ __device__ void gmem_matvec(const T* __restrict__ M, const T* v, T* out, int row
 
 // Cholesky of T + diag(dinv) interleaved with the inverse G = inv(L) of its
 // factor, in one m x m tile (the recurrence of the TPU kernel's
-// _chol_inv_inplace):
+// _chol_inv_inplace). It and apply_inv serve kernel 11 (diag_step.cu) and
+// kernel A at small m (factor_inv.cu::factor_inv_tile_kernel, m <= 17 in
+// float32, <= 50 in float64); kernel A past those widths, kernels C and E
+// and the fused steps factor on panel.cuh's 32-row panels.
 //   pivot step j:  isq = rsqrt(T[j][j] + dinv[j]),  L[k][j] = T[j][k] isq,
 //                  G[k][e] -= L[k][j] (G[j][e] isq)     (k > j, e <= j),
 //                  T[k][e] -= L[k][j] (T[j][e] isq)     (j < k <= e).

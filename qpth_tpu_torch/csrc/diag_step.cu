@@ -27,7 +27,7 @@
 // 3.35 TB/s. Its flops (neq^3 / 3 for the factor, ~neq^3 / 3 for the inverse,
 // 2 + 2 (1 + n_correctors) products with A and the triangular applies) take
 // ~3 us at 67 TFLOP/s. The neq dependent pivot steps (one barrier each)
-// set the time, as in kernel A.
+// set the time.
 //
 // Block size: the common.cuh helpers (block_reduce, smem_matvec,
 // chol_inv_smem) are written for kThreads = 256, which also covers the

@@ -1,12 +1,13 @@
-// Panel helpers of kernels C (csrc/chol.cu) and E (csrc/trinv.cu) and of the
-// fused IPM steps (csrc/ipm_step_body.cuh): one thread block per QP holds one
-// m x m row-major tile (leading dimension m) in shared memory, and the
-// factorization, its substitutions or the inversion walk it in panels of 32
-// rows, one warp's width. The dependent chains run only inside a warp, over a
-// panel's 32 x 32 diagonal block, in registers and lane shuffles; every warp
-// then works on the block products between panels, each lane on a 4 x 4
-// register tile, so each shared-memory load feeds two multiply-adds instead
-// of a third of one. A panel costs a few block barriers, not one per pivot.
+// Panel helpers of kernels A (csrc/factor_inv.cu), C (csrc/chol.cu) and E
+// (csrc/trinv.cu) and of the fused IPM steps (csrc/ipm_step_body.cuh): one
+// thread block per QP holds one m x m row-major tile (leading dimension m) in
+// shared memory, and the factorization, its substitutions or the inversion
+// walk it in panels of 32 rows, one warp's width. The dependent chains run
+// only inside a warp, over a panel's 32 x 32 diagonal block, in registers
+// and lane shuffles; every warp then works on the block products between
+// panels, each lane on a 4 x 4 register tile, so each shared-memory load
+// feeds two multiply-adds instead of a third of one. A panel costs a few
+// block barriers, not one per pivot.
 //
 // The last panel is ragged (m = 100 is 32 + 32 + 32 + 4): a routine given a
 // panel of w < 32 rows keeps the missing rows at zero and never stores them.
@@ -229,6 +230,91 @@ __host__ __device__ constexpr int panels(int m) {
   return (m + kPanelWidth - 1) / kPanelWidth;
 }
 
+// A barrier of the nw warps w0 .. w0 + nw - 1 that run a routine: the whole
+// block's (__syncthreads) when they are all its warps, else named barrier 1
+// for their 32 nw threads, so that the warps outside it can work beside them.
+__device__ __forceinline__ void warps_sync(int nw) {
+  if (nw == kWarps)
+    __syncthreads();
+  else
+    asm volatile("bar.sync 1, %0;\n" ::"r"(32 * nw) : "memory");
+}
+
+// inv(L) in place in the tile, from Lt = L^T strictly above the diagonal
+// (L[i][k] = Lt[k][i]) and rd, the reciprocals of Lt's diagonal: inv(L)
+// fills the lower triangle and diagonal, row i of inv(L) in row i, and Lt's
+// strict upper triangle is left as it was. The TPU kernel's _trinv_kernel
+// (cholesky.py:203) on 32-row panels, run by warps w0 .. w0 + nw - 1:
+//   * all nb = panels(n) <= nw diagonal blocks at once, one warp each,
+//     X_ii = inv(L_ii) by forward substitution in registers
+//     (trinv_diag_block);
+//   * then for row block I = 1 .. nb - 1, with L[I, :I] read as Lt's
+//     columns,
+//       C = -L[I, :I] invL[:I, :I]      the warps' 4 x 4 register tiles,
+//       invL[I, :I] = X_II C            a thread per column, in place.
+// Neither reads the tile's diagonal (the pivots come from rd) or writes
+// above it. On entry Lt and rd are published behind a barrier; 2 nb - 1
+// barriers of the nw warps (warps_sync), the last one before return, and no
+// dependent chain longer than a diagonal block's 32 steps. Kernel E
+// (trinv.cu) runs it on all the block's warps, kernel A (factor_inv.cu) on
+// all but warp 0 when warp 0 has a back substitution to run beside it.
+template <typename T>
+__device__ __forceinline__ void trinv_panels(T* Tm, int n, const T* rd, int w0,
+                                             int nw, int warp, int lane) {
+  const int nb = panels(n), wi = warp - w0;
+  if (wi < nb) {
+    const int p0 = kPanelWidth * wi;
+    trinv_diag_block(Tm, n, p0, min(kPanelWidth, n - p0), rd, lane);
+  }
+  warps_sync(nw);
+
+  for (int I0 = kPanelWidth; I0 < n; I0 += kPanelWidth) {
+    const int w = min(kPanelWidth, n - I0);
+    // C = -L[I, :I] invL[:I, :I] into rows I0 .. I0 + w - 1, columns < I0:
+    // C[r][c] = -sum_{c <= k < I0} Lt[k][I0 + r] invL[k][c].
+    const int ntc = I0 / kTileCols;
+    const int ntiles = ntc * ((w + kTileRows - 1) / kTileRows);
+    for (int t = wi; t < ntiles; t += nw) {
+      const int tr = t / ntc, tc = t - tr * ntc;
+      int r[4], c[4], ar[4], bc[4];
+      tile_coords(kTileRows * tr, kTileCols * tc, lane, r, c);
+      T acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ar[i] = I0 + min(r[i], w - 1);
+        bc[i] = min(c[i], I0 - 1);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = T(0);
+      }
+      tile_update<T, true, 4>(acc, Tm, Tm, n, ar, bc, kTileCols * tc, I0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (r[i] < w && c[q] < I0) Tm[(I0 + r[i]) * n + c[q]] = acc[i][q];
+    }
+    warps_sync(nw);
+    // invL[I, c] = X_II C[:, c], a thread per column c < I0, rows descending
+    // so that each result overwrites a C entry no later row needs.
+    const T* X = Tm + I0 * n + I0;
+    for (int c = 32 * wi + lane; c < I0; c += 32 * nw) {
+      T* col = Tm + I0 * n + c;
+      T y[kPanelWidth];
+#pragma unroll
+      for (int s = 0; s < kPanelWidth; ++s) y[s] = s < w ? col[s * n] : T(0);
+#pragma unroll
+      for (int r = kPanelWidth - 1; r >= 0; --r) {
+        if (r >= w) continue;
+        T acc = T(0);
+#pragma unroll
+        for (int s = 0; s <= r; ++s) acc += X[r * n + s] * y[s];
+        col[r * n] = acc;
+      }
+    }
+    warps_sync(nw);
+  }
+}
+
 // One warp's 4 MI x 32 tile at (rb, cb) of the trailing matrix takes the
 // panel's rank-w update, T[r][c] -= sum_k W[k][r] W[k][c] (W: the panel's
 // rows of Lt, leading dimension m), on and above the diagonal.
@@ -409,6 +495,26 @@ __device__ __forceinline__ void back_panels(const T* Tm, int m, const T* isqv,
     }
     __syncthreads();
   }
+}
+
+// back_panels in one warp: per panel from the last, the panel's chain
+// (back_chain), then the rows above it take the panel's solution
+// (back_update_row), a row a lane. Every x_i receives the same operations in
+// the same order as in back_panels, with __syncwarp between the phases and
+// no block barrier, so that the other warps can work beside it. On entry y
+// is published to the warp; it reads only Lt's strict upper triangle and
+// isqv.
+template <typename T>
+__device__ __forceinline__ void back_warp(const T* Tm, int m, const T* isqv,
+                                          T* xs, int lane) {
+  for (int p0 = (panels(m) - 1) * kPanelWidth; p0 >= 0; p0 -= kPanelWidth) {
+    const int w = min(kPanelWidth, m - p0);
+    __syncwarp();
+    back_chain(Tm, m, p0, w, isqv, xs, lane);
+    __syncwarp();
+    for (int i = lane; i < p0; i += 32) back_update_row(Tm, m, p0, w, xs, i);
+  }
+  __syncwarp();
 }
 
 // x = T^-1 r from the factor in the tile (factor_panels' Lt and isqv):

@@ -5,14 +5,14 @@
 // stays a torch.matmul, as it stays outside the Pallas kernel there).
 //
 // One thread block per QP holds Lt and the inverse in one m x m
-// shared-memory tile, the layout of csrc/common.cuh::chol_inv_smem: Lt's
-// strictly upper triangle above the diagonal, inv(L)'s lower triangle and
-// diagonal on and below it, and the reciprocals of Lt's diagonal in one
-// m-vector. It launches with kernel C's working set (panel.cuh::
-// chol_smem_bytes, checked by kernels.py::chol_fits: m <= 239 in float32,
-// <= 168 in float64): whatever C factors, E inverts. The
-// algorithm is the TPU kernel's _trinv_kernel (cholesky.py:203) in panels of
-// 32 rows (panel.cuh):
+// shared-memory tile, the layout kernel A inverts in too: Lt's strictly
+// upper triangle above the diagonal, inv(L)'s lower triangle and diagonal on
+// and below it, and the reciprocals of Lt's diagonal in one m-vector. It
+// launches with kernel C's working set (panel.cuh::chol_smem_bytes, checked
+// by kernels.py::chol_fits: m <= 239 in float32, <= 168 in float64):
+// whatever C factors, E inverts. The algorithm is the TPU kernel's
+// _trinv_kernel (cholesky.py:203) in panels of 32 rows
+// (panel.cuh::trinv_panels, which kernel A calls on its own factor):
 //   * all nb = ceil(m / 32) <= 8 diagonal blocks are inverted at once, one
 //     warp each, X_ii = inv(L_ii) by forward substitution in registers;
 //   * then for row block i = 1 .. nb - 1, with L[i, :i] read as Lt's columns,
@@ -55,59 +55,7 @@ trinv_kernel(const T* __restrict__ Lt, T* __restrict__ invL, int n) {
     }
   __syncthreads();
 
-  const int nb = (n + kPanelWidth - 1) / kPanelWidth;
-  if (warp < nb) {
-    const int p0 = kPanelWidth * warp;
-    trinv_diag_block(Tm, n, p0, min(kPanelWidth, n - p0), rd, lane);
-  }
-  __syncthreads();
-
-  for (int I0 = kPanelWidth; I0 < n; I0 += kPanelWidth) {
-    const int w = min(kPanelWidth, n - I0);
-    // C = -L[I, :I] invL[:I, :I] into rows I0 .. I0 + w - 1, columns < I0:
-    // C[r][c] = -sum_{c <= k < I0} Lt[k][I0 + r] invL[k][c].
-    const int ntc = I0 / kTileCols;
-    const int ntiles = ntc * ((w + kTileRows - 1) / kTileRows);
-    for (int t = warp; t < ntiles; t += kWarps) {
-      const int tr = t / ntc, tc = t - tr * ntc;
-      int r[4], c[4], ar[4], bc[4];
-      tile_coords(kTileRows * tr, kTileCols * tc, lane, r, c);
-      T acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ar[i] = I0 + min(r[i], w - 1);
-        bc[i] = min(c[i], I0 - 1);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[i][q] = T(0);
-      }
-      tile_update<T, true, 4>(acc, Tm, Tm, n, ar, bc, kTileCols * tc, I0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (r[i] < w && c[q] < I0) Tm[(I0 + r[i]) * n + c[q]] = acc[i][q];
-    }
-    __syncthreads();
-    // invL[I, c] = X_II C[:, c], a thread per column c < I0, rows descending
-    // so that each result overwrites a C entry no later row needs.
-    const T* X = Tm + I0 * n + I0;
-    for (int c = threadIdx.x; c < I0; c += blockDim.x) {
-      T* col = Tm + I0 * n + c;
-      T y[kPanelWidth];
-#pragma unroll
-      for (int s = 0; s < kPanelWidth; ++s) y[s] = s < w ? col[s * n] : T(0);
-#pragma unroll
-      for (int r = kPanelWidth - 1; r >= 0; --r) {
-        if (r >= w) continue;
-        T acc = T(0);
-#pragma unroll
-        for (int s = 0; s <= r; ++s) acc += X[r * n + s] * y[s];
-        col[r * n] = acc;
-      }
-    }
-    __syncthreads();
-  }
-
+  trinv_panels(Tm, n, rd, 0, kWarps, warp, lane);
   store_triangle<T, false>(invL + b * n * n, Tm, n, 0, kWarps, warp, lane);
 }
 

@@ -5,6 +5,8 @@ Kernel A, ``factor_inv`` (``csrc/factor_inv.cu``), in three variants:
   * ``factor_inv(R, dinv)``            -> Linv = inv(chol(R + diag(dinv)))
   * ``factor_inv(R, dinv, rhs)``       -> (Linv, T^-1 rhs)
   * ``factor_inv(R, dinv, rhs, z)``    -> (Linv, T^-1 (rhs - R z))
+  (at m up to ``factor_inv_tile_max(dtype)`` also counted as
+  ``factor_inv_tile``).
 Kernel B, ``ipm_step_xfree`` (``csrc/ipm_step_xfree.cu``): one whole x-free
 Mehrotra iteration for neq = 0.
 ``inv_solve`` (``csrc/inv_solve.cu``): x = Linv^T (Linv rhs), every further
@@ -74,13 +76,15 @@ DIAG_EQ_VECTORS = 5
 CHOL_VECTORS = 4
 
 LAUNCHES = {"factor_inv": 0, "factor_inv_solve": 0,
-            "factor_inv_solve_rz": 0, "ipm_step_xfree": 0, "inv_solve": 0,
+            "factor_inv_solve_rz": 0, "factor_inv_tile": 0,
+            "ipm_step_xfree": 0, "inv_solve": 0,
             "ipm_step": 0, "ipm_step_eq": 0, "diag_step": 0, "chol": 0,
             "chol_solve": 0, "cho_solve": 0, "cho_solve_shared": 0,
             "trinv": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 _fns: dict[str, object] = {}
+_tile_max: dict[torch.dtype, int] = {}
 
 
 def reset_launches() -> None:
@@ -90,12 +94,11 @@ def reset_launches() -> None:
 
 def fits(m: int, dtype, nz: int = 0, neq: int = 0) -> bool:
     """Whether one QP's working set fits a thread block: one m x m tile
-    (kernel A: T's trailing block above the diagonal, inv(L)'s rows below
-    it, csrc/common.cuh; the fused steps: R, then T's factor on 32-row
-    panels, csrc/panel.cuh), SMEM_VECTORS m-vectors and the fused steps'
-    RED_WORDS of reduction scratch within 227 KB, and m <= THREADS
-    (float32: m <= 237, leaving 39 words; float64: m <= 166, leaving
-    164 words). The fused steps with the direct x update (``ipm_step``,
+    (kernel A: T's factor above the diagonal, inv(L) on and below it; the
+    fused steps: R, then T's factor; both on 32-row panels, csrc/panel.cuh),
+    SMEM_VECTORS m-vectors and the fused steps' RED_WORDS of reduction
+    scratch within 227 KB, and m <= THREADS (float32: m <= 237, leaving 39
+    words; float64: m <= 166, leaving 164 words). The fused steps with the direct x update (``ipm_step``,
     ``ipm_step_eq``) also keep one nz-vector and, with equality
     constraints, SMEM_EQ_VECTORS neq-vectors; pass their ``nz`` and
     ``neq``. ``inv_solve`` keeps no tile: m <= THREADS alone."""
@@ -186,14 +189,23 @@ def _launch_error(name, err):
 
 def factor_inv(R, dinv, rhs=None, z=None):
     """Linv = inv(chol(R + diag(dinv))), with ``rhs`` also x = T^-1 rhs,
-    with ``rhs`` and ``z`` x = T^-1 (rhs - R z).
+    with ``rhs`` and ``z`` x = T^-1 (rhs - R z). R's lower triangle is read
+    (the whole R for R z).
 
     Replaces the TPU kernel ``qpth_tpu/ops/pallas/lanes.py::_factor_inv_call``
     (``factor_inv_lanes`` / ``factor_inv_solve_lanes`` /
-    ``factor_inv_solve_rz_lanes``). On the H100 it is bound by bytes: R's
-    triangle in and Linv out once (>= 0.074 ms at B = 4096, m = 100, f32).
-    One block per QP factors and inverts in one m x m shared-memory tile,
-    so no intermediate touches device memory; see csrc/factor_inv.cu.
+    ``factor_inv_solve_rz_lanes``), which factors and inverts pivot by
+    pivot. On the H100 it is bound by bytes: R's triangle in and Linv out
+    once (>= 0.074 ms at B = 4096, m = 100, f32; 0.150 ms in f64). One block
+    per QP keeps everything in one m x m shared-memory tile and walks it in
+    panels of 32 rows, as kernels C and E do: the factor with the shift
+    folded into each pivot and y = L^-1 rhs riding as one more column
+    (kernel C's loop), the inverse in the same tile (kernel E's scheme), and
+    x = L^-T y by back substitution in one warp beside the inverse in the
+    others; a dependent chain is one warp's 32 steps, not the m pivot steps
+    behind a barrier each of the TPU kernel's recurrence. Up to
+    :func:`factor_inv_tile_max` (17 in float32, 50 in float64) that
+    recurrence is faster and the kernel keeps it. See csrc/factor_inv.cu.
 
     Returns Linv, or (Linv, x) when ``rhs`` is given."""
     if z is not None and rhs is None:
@@ -217,7 +229,20 @@ def factor_inv(R, dinv, rhs=None, z=None):
                  B, m, int(R.shape[0] > 1), stream)
     _launch_error(variant, err)
     LAUNCHES[variant] += 1
+    if m <= factor_inv_tile_max(R.dtype):
+        LAUNCHES["factor_inv_tile"] += 1
     return Linv if rhs is None else (Linv, x)
+
+
+def factor_inv_tile_max(dtype):
+    """The largest m at which kernel A launches its per-pivot
+    factor-inverse (``TileMaxM`` in csrc/factor_inv.cu), as the library
+    states it."""
+    if dtype not in _tile_max:
+        fn = build.load("factor_inv").qpth_factor_inv_tile_max
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+        _tile_max[dtype] = fn(int(dtype == torch.float64))
+    return _tile_max[dtype]
 
 
 def _apply_inv(G, r):

@@ -59,6 +59,43 @@ def test_factor_inv_kernel_matches_plain(cuda, variant, shared, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("variant", ["inv", "solve", "solve_rz"])
+@pytest.mark.parametrize("m", [1, 8, 17, 18, 31, 32, 33, 40, 50, 51, 64,
+                               100])
+def test_factor_inv_kernel_at_every_width(cuda, m, variant, dtype):
+    """Kernel A on both sides of factor_inv_tile_max (the per-pivot kernel
+    up to it, the panels past it, ragged last panels around 32), from an R
+    whose upper triangle is noise (only the lower one counts), with one
+    lane whose T is not SPD: NaN there alone, the other lanes the plain
+    version's. The profiler names the kernel that ran, which the counter
+    LAUNCHES["factor_inv_tile"] reports."""
+    B, bad = 64, 5
+    R = _spd(B, m, dtype, cuda, seed=m)
+    R = R + torch.triu(_rand(R.shape, dtype, cuda, m + 1), 1)
+    dinv, rhs, z = _vecs(B, m, dtype, cuda)
+    dinv[bad] = -2.0 * R[bad].diagonal().max()
+    args = {"inv": (R, dinv), "solve": (R, dinv, rhs),
+            "solve_rz": (R, dinv, rhs, z)}[variant]
+    kernels.reset_launches()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = kernels.factor_inv(*args)
+        torch.cuda.synchronize()
+    ran = [e.key for e in prof.key_averages() if "factor_inv" in e.key]
+    assert len(ran) == 1
+    tile = "factor_inv_tile_kernel" in ran[0]
+    assert tile == (m <= kernels.factor_inv_tile_max(dtype))
+    assert kernels.LAUNCHES["factor_inv_tile"] == int(tile)
+    want = kernels.factor_inv_plain(*args)
+    got, want = ((got,), (want,)) if variant == "inv" else (got, want)
+    keep = torch.arange(B, device=cuda) != bad
+    for a, b in zip(got, want):
+        assert torch.equal(torch.isnan(a.flatten(1)).any(1), ~keep)
+        assert (a[keep] - b[keep]).abs().max().item() <= TOL[dtype] * 10
+    assert not torch.triu(got[0], 1).nan_to_num(1.0).any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("shared", [False, True])
 @pytest.mark.parametrize("n_correctors", [0, 2])
 def test_ipm_step_kernel_matches_plain(cuda, n_correctors, shared, dtype):

@@ -150,15 +150,19 @@ def chol_model(R, dinv=None, rhs=None, barriers=None, isqv=None):
 # Kernel E
 # ---------------------------------------------------------------------------
 
-def trinv_model(Lt, barriers=None):
-    """Kernel E's order of operations: inv(L) from Lt = L^T; its block
-    barriers are appended to ``barriers`` as in :func:`chol_model`."""
+def trinv_model(Lt, barriers=None, rd=None):
+    """Kernel E's order of operations (panel.cuh::trinv_panels after E's
+    staging): inv(L) from Lt = L^T; its block barriers are appended to
+    ``barriers`` as in :func:`chol_model`. ``rd``, the reciprocals of Lt's
+    diagonal, defaults to E's 1 / Lt[j][j] (kernel A passes the pivots'
+    rsqrt); the diagonal itself is not read."""
     bar = [] if barriers is None else barriers
     B, n = Lt.shape[0], Lt.shape[-1]
     nan = torch.tensor(float("nan"), dtype=Lt.dtype)
     strict_upper = torch.ones(n, n, dtype=torch.bool).triu(1)
     tile = torch.where(strict_upper, Lt, nan)       # lower part: not yet set
-    rd = 1.0 / torch.diagonal(Lt, dim1=1, dim2=2)
+    if rd is None:
+        rd = 1.0 / torch.diagonal(Lt, dim1=1, dim2=2)
     bar.append("staged")
     for p0 in range(0, n, P):                       # the diagonal blocks
         w = min(P, n - p0)

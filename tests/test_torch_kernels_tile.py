@@ -1,6 +1,7 @@
 """A CPU model of the one-tile factor-inverse recurrence of
-``qpth_tpu_torch/csrc/common.cuh::chol_inv_smem`` (kernel A and kernel 11
-run it; the fused IPM steps factor on panels, see
+``qpth_tpu_torch/csrc/common.cuh::chol_inv_smem`` (kernel 11 runs it;
+kernel A and the fused IPM steps factor on panels, see
+``test_torch_kernels_factor_inv_panel.py`` and
 ``test_torch_kernels_step_panel.py``), held to the plain version
 ``factor_inv_plain``.
 
