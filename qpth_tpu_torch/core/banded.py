@@ -29,12 +29,11 @@ scatters, and G^T diag(d) G is scattered into the band by ``index_put_``
 with accumulation. The JAX package turns these scatters into one-hot GEMMs
 on a TPU, where XLA serialises scatters; here they stay scatters.
 
-Loop semantics (init and shift, residual score, best-iterate tracking,
-the not-improved window, Mehrotra predictor-corrector, Gondzio correctors,
-0.999 step, per-lane NaN freeze, the general tier's d cap and Newton
-refinement) follow the reference line by line. Its ``lax.while_loop`` is a
-Python ``for`` here with one host read of ``done`` per iteration; an
-iteration that finds ``done`` counts and does not step.
+The loop is the dense tier's (``core/pdipm.py::ipm_loop``, with its
+init shift, best-iterate tracking, window, Mehrotra predictor-corrector
+with Gondzio corrections and NaN freeze); this tier supplies its residual
+score, its step (with the general tier's d cap) and its post-loop Newton
+refinement, and follows the reference line by line.
 """
 
 from __future__ import annotations
@@ -44,12 +43,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import QPSolution, SolverConfig, SolveStats, resolve_refine_steps
+from ..config import QPSolution, SolverConfig, resolve_refine_steps
 from ..ops import kkt as kkt_ops
 from ..ops.linalg import bmv, btmv
 from .diag import _bvec, _factor_spd, _m_solve, use_kernels_m
-from .pdipm import (_is_f64, _step_to_boundary, exit_test,
-                    warn_inaccurate)
+from .pdipm import (Score, _is_f64, _nan_lanes, _norm, damped_update,
+                    finish_stats, ipm_loop, pc_direction,
+                    resolve_improve_margin, start_point)
 
 
 def _bt_mul_s(Qd_s, Qe_s, x_s):
@@ -437,142 +437,58 @@ def solve_banded(Qd, Qe, p, g, h, A, b, config: SolverConfig,
     sysb = _Band(Qd, Qe, g, A, B, g_cols, gen_g)
     neq, m = sysb.neq, sysb.m
 
-    improve_margin = config.improve_margin
-    if improve_margin is None:
-        improve_margin = 0.0 if _is_f64(dtype) else 1e-3
-    per_lane_term = improve_margin > 0.0
-
     # ---- Init: d = 1, RHS (p, 0, -h, -b) ----
-    if init is None:
+    def solve_init():
         ones = torch.ones((B, m), dtype=dtype, device=device)
-        fac0 = sysb.factor(ones)
-        x, s, z, y = sysb.newton(*fac0, p, None, -h,
-                                 -b if neq > 0 else None, ones)
+        return sysb.newton(*sysb.factor(ones), p, None, -h,
+                           -b if neq > 0 else None, ones)
 
-        def shift_pos(v):
-            mn = v.amin(dim=-1, keepdim=True)
-            return torch.where(mn < 0, v - mn + 1.0, v)
-
-        s = shift_pos(s)
-        z = shift_pos(z)
-    else:
-        x, s, z, y = init
-        s = torch.clamp(s, min=config.warm_start_min)
-        z = torch.clamp(z, min=config.warm_start_min)
-    if y is None:
-        y = torch.zeros((B, 0), dtype=dtype, device=device)
-
-    def norm(v):
-        return torch.linalg.vector_norm(v, dim=-1)
+    x, s, z, y = start_point(config, init, solve_init, B, dtype, device)
 
     def residuals(x, s, z, y):
         rx = sysb.qmul(x) + p + sysb.gtmul(z)
         if neq > 0:
             rx = rx + btmv(A, y)
             ry = bmv(A, x) - b
-            y_resid = norm(ry)
+            y_resid = _norm(ry)
         else:
             ry = None
             y_resid = torch.zeros((B,), dtype=dtype, device=device)
         rz = sysb.gmul(x) + s - h
         mu = torch.abs((s * z).sum(dim=-1) / m)
-        resids = y_resid + norm(rz) + norm(rx) + m * mu
+        resids = y_resid + _norm(rz) + _norm(rx) + m * mu
         return rx, rz, ry, mu, resids
+
+    def score(it, x, s, z, y):
+        rx, rz, ry, mu, resids = residuals(x, s, z, y)
+        return Score(resids, mu, res=(rx, rz, ry))
 
     one = torch.ones((), dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
 
-    def step_min(z, s, dz, ds):
-        return torch.minimum(_step_to_boundary(z, dz),
-                             _step_to_boundary(s, ds))
+    def predict(z, y, d, res):
+        rx, rz, ry = res
+        fac = sysb.factor(d)
+        return (fac,) + sysb.newton(*fac, rx, z, rz, ry, d)
 
-    def frozen(dx, ds, dz, dy):
-        """Per-lane NaN mask (B, 1) of a direction."""
-        bad = (torch.isnan(dx).any(-1) | torch.isnan(ds).any(-1)
-               | torch.isnan(dz).any(-1))
-        if neq > 0:
-            bad = bad | torch.isnan(dy).any(-1)
-        return bad.unsqueeze(-1)
+    def correct(fac, d, rs):
+        return sysb.newton(*fac, None, rs, None, None, d)
 
-    def do_step(x, s, z, y, mu, rx, rz, ry):
+    def step(x, s, z, y, mu, res):
         d = z / s
         if gen_g is not None:
             # General G only: the G^T diag(d) G cross terms cancel
             # catastrophically in the stage recursion once d >> 1/eps;
             # capping bounds cond(H) at an O(1/cap) barrier perturbation.
             d = torch.clamp(d, max=_d_cap(dtype))
-        fac = sysb.factor(d)
+        dirs = pc_direction(s, z, y, mu, d, res, predict, correct,
+                            config.n_correctors, one)
+        return damped_update(x, s, z, y, *dirs, one, zero)[:4]
 
-        # Predictor (rs := z).
-        dx_a, ds_a, dz_a, dy_a = sysb.newton(*fac, rx, z, rz, ry, d)
-        alpha = torch.minimum(step_min(z, s, dz_a, ds_a), one).unsqueeze(-1)
-        t1 = ((s + alpha * ds_a) * (z + alpha * dz_a)).sum(dim=-1)
-        t2 = (s * z).sum(dim=-1)
-        sig = (t1 / t2) ** 3
-
-        # Corrector: RHS zero except rs.
-        rs_c = ((-mu * sig).unsqueeze(-1) + ds_a * dz_a) / s
-        dx_c, ds_c, dz_c, dy_c = sysb.newton(*fac, None, rs_c, None, None, d)
-        dx, ds, dz = dx_a + dx_c, ds_a + ds_c, dz_a + dz_c
-        dy = (dy_a + dy_c) if neq > 0 else None
-
-        # Gondzio centrality corrections, accepted per lane when the step
-        # lengthens.
-        for _ in range(config.n_correctors):
-            a_g = torch.minimum(step_min(z, s, dz, ds), one)
-            a_t = torch.minimum(1.08 * a_g + 0.08, one).unsqueeze(-1)
-            v = (s + a_t * ds) * (z + a_t * dz)
-            mu_t = (sig * mu).unsqueeze(-1)
-            rs_g = (v - torch.minimum(torch.maximum(v, 0.1 * mu_t),
-                                      10.0 * mu_t)) / s
-            ddx, dds, ddz, ddy = sysb.newton(*fac, None, rs_g, None, None, d)
-            dz_n, ds_n = dz + ddz, ds + dds
-            a_n = torch.minimum(step_min(z, s, dz_n, ds_n), one)
-            acc = (a_n > a_g).unsqueeze(-1)
-            dz = torch.where(acc, dz_n, dz)
-            ds = torch.where(acc, ds_n, ds)
-            dx = torch.where(acc, dx + ddx, dx)
-            if neq > 0:
-                dy = torch.where(acc, dy + ddy, dy)
-
-        alpha = torch.minimum(0.999 * step_min(z, s, dz, ds), one)
-        msk = frozen(dx, ds, dz, dy)
-        alpha = torch.where(msk, zero, alpha.unsqueeze(-1))
-        x = x + alpha * torch.where(msk, zero, dx)
-        s = s + alpha * torch.where(msk, zero, ds)
-        z = z + alpha * torch.where(msk, zero, dz)
-        if neq > 0:
-            y = y + alpha * torch.where(msk, zero, dy)
-        return x, s, z, y
-
-    best_x, best_s, best_z, best_y = x, s, z, y
-    best_resids = torch.full((B,), float("inf"), dtype=dtype, device=device)
-    mu = torch.zeros((B,), dtype=dtype, device=device)
-    n_not = torch.zeros((B,) if per_lane_term else (), dtype=torch.int32,
-                        device=device)
-    lane_done = torch.zeros((B,), dtype=torch.bool, device=device)
-    iterations = 0
-
-    for it in range(config.max_iter):
-        iterations = it + 1
-        rx, rz, ry, mu, resids = residuals(x, s, z, y)
-
-        improved_strict = resids < best_resids
-        improved = resids < best_resids * (1.0 - improve_margin)
-        best_resids = torch.where(improved_strict, resids, best_resids)
-        imp = improved_strict.unsqueeze(-1)
-        best_x = torch.where(imp, x, best_x)
-        best_s = torch.where(imp, s, best_s)
-        best_z = torch.where(imp, z, best_z)
-        if neq > 0:
-            best_y = torch.where(imp, y, best_y)
-
-        n_not, lane_done, done = exit_test(config, per_lane_term, improved,
-                                           n_not, lane_done, 1,
-                                           (best_resids,), mu)
-        if bool(done):  # the one host read per iteration
-            break
-        x, s, z, y = do_step(x, s, z, y, mu, rx, rz, ry)
+    out = ipm_loop(config, (x, s, z, y), score, step,
+                   resolve_improve_margin(config, dtype))
+    (best_x, best_s, best_z, best_y), best_resids, mu = (
+        out.best, out.best_resids, out.mu)
 
     # Post-loop linear KKT refinement (the reference's scheme): full Newton
     # steps toward mu = 0 with the complementarity diagonal clamped low,
@@ -593,7 +509,7 @@ def solve_banded(Qd, Qe, p, g, h, A, b, config: SolverConfig,
             rs_eff = z * (s / s_hat)
             fac_r = sysb.factor(d_r)
             dx, ds, dz, dy = sysb.newton(*fac_r, rx, rs_eff, rz, ry, d_r)
-            msk = frozen(dx, ds, dz, dy)
+            msk = _nan_lanes(dx, ds, dz, dy).unsqueeze(-1)
             x = x + torch.where(msk, zero, dx)
             s = s + torch.where(msk, zero, ds)
             z = z + torch.where(msk, zero, dz)
@@ -609,14 +525,7 @@ def solve_banded(Qd, Qe, p, g, h, A, b, config: SolverConfig,
                     torch.where(take, mu_n, best[5])]
         best_x, best_s, best_z, best_y, best_resids, mu = best
 
-    if config.verbose >= 0:
-        warn_inaccurate(config, best_resids)
-
-    stats = SolveStats(
-        iterations=torch.tensor(iterations, dtype=torch.int32,
-                                device=device),
-        best_resids=best_resids, mu=mu,
-        converged=best_resids < config.eps)
+    stats = finish_stats(config, out.iterations, best_resids, mu)
     return QPSolution(z=best_x, nu=best_y, lam=best_z, s=best_s, stats=stats)
 
 

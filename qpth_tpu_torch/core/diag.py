@@ -22,24 +22,22 @@ arithmetic. With ``SolverConfig(fused_diag_step=True)``, a shared A and a
 fit (``kernels.diag_step_fits``), every stepping iteration is one
 ``diag_step`` launch after the M product.
 
-Loop semantics (init + shift, residual score, best-iterate tracking, the
-not-improved window, Mehrotra predictor-corrector with optional Gondzio
-corrections, 0.999 step, NaN freeze) follow the reference line by line.
-Its ``lax.while_loop`` is a Python ``for`` here with one host read of
-``done`` per iteration: an iteration that finds ``done`` counts and does
-not step, as ``lax.cond(done, identity, do_step)`` does there.
+The loop is the dense tier's (``core/pdipm.py::ipm_loop``, with its
+init shift, best-iterate tracking, window, Mehrotra predictor-corrector
+with Gondzio corrections and NaN freeze); this tier supplies its residual
+score and its step, and follows the reference line by line.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..config import QPSolution, SolverConfig, SolveStats
+from ..config import QPSolution, SolverConfig
 from ..ops.cuda import kernels
 from ..ops.kkt import no_library_path
 from ..ops.linalg import bmv, btmv, cho_solve_vec, cholesky
-from .pdipm import (_is_f64, _step_to_boundary, exit_test,
-                    warn_inaccurate)
+from .pdipm import (Score, _norm, damped_update, finish_stats, ipm_loop,
+                    pc_direction, resolve_improve_margin, start_point)
 
 
 def _bvec(v, B):
@@ -110,12 +108,6 @@ def solve_diag(q, p, g, h, A, b, config: SolverConfig,
         b = None
     m = n  # G is diagonal: nineq == nz
 
-    improve_margin = config.improve_margin
-    if improve_margin is None:
-        improve_margin = 0.0 if _is_f64(dtype) else 1e-3
-    # Per-lane latched windows with a margin, the global window at 0.
-    per_lane_term = improve_margin > 0.0
-
     # Every other use_pallas value runs the kernels here, as every value
     # but False / "xla" takes the lanes kernels in the JAX package's tier.
     no_library_path(config.use_pallas)
@@ -123,12 +115,62 @@ def solve_diag(q, p, g, h, A, b, config: SolverConfig,
     use_fused = (use_kernels and config.fused_diag_step and A is not None
                  and A.shape[0] == 1
                  and kernels.diag_step_fits(n, neq, dtype))
+
+    def factor(d):
+        """(H, the factor of M) at d."""
+        H = q + g * g * d
+        return H, (_m_factor(A, 1.0 / H, use_kernels) if neq > 0 else None)
+
+    def newton(fac, d, rx, rs, rz, ry):
+        """Solve the H-system on ``factor(d)``; a residual block given as
+        None is structurally zero (the corrector's RHS is rs alone)."""
+        return solve_kkt_diag(q, g, A, d, *fac, rx, rs, rz, ry, B, n, dtype)
+
+    def solve_init():
+        ones = torch.ones((B, m), dtype=dtype, device=device)
+        return newton(factor(ones), ones, p, None, -h,
+                      -b if neq > 0 else None)
+
+    x, s, z, y = start_point(config, init, solve_init, B, dtype, device)
+
+    def score(it, x, s, z, y):
+        rx = q * x + p + g * z
+        if neq > 0:
+            rx = rx + btmv(A, y)
+            ry = bmv(A, x) - b
+            y_resid = _norm(ry)
+        else:
+            ry = None
+            y_resid = torch.zeros((B,), dtype=dtype, device=device)
+        rz = g * x + s - h
+        mu = torch.abs((s * z).sum(dim=-1) / m)
+        return Score(y_resid + _norm(rz) + _norm(rx) + m * mu, mu,
+                     res=(rx, rz, ry))
+
+    one = torch.ones((), dtype=dtype, device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+
+    def predict(z, y, d, res):
+        rx, rz, ry = res
+        fac = factor(d)
+        return (fac,) + newton(fac, d, rx, z, rz, ry)
+
+    def correct(fac, d, rs):
+        return newton(fac, d, None, rs, None, None)
+
+    def composed_step(x, s, z, y, mu, res):
+        d = z / s
+        dirs = pc_direction(s, z, y, mu, d, res, predict, correct,
+                            config.n_correctors, one)
+        return damped_update(x, s, z, y, *dirs, one, zero)[:4]
+
     if use_fused:
         A_k = A.contiguous()
         # A shared g is an expansion: the kernel reads its one row.
         g_k = g[:1].contiguous() if g.stride(0) == 0 else g.contiguous()
 
-        def fused_step(x, s, z, y, rx, rz, ry):
+        def fused_step(x, s, z, y, mu, res):
+            rx, rz, ry = res
             d = z / s
             H = q + g * g * d
             M = _m_assemble(A, 1.0 / H)
@@ -138,154 +180,11 @@ def solve_diag(q, p, g, h, A, b, config: SolverConfig,
                 s.contiguous(), z.contiguous(), y.contiguous(),
                 config.n_correctors)
 
-    def solve_newton(H, fac, rx, rs, rz, ry, d):
-        """Solve the H-system; a residual block given as None is
-        structurally zero (the corrector's RHS is rs alone)."""
-        return solve_kkt_diag(q, g, A, d, H, fac, rx, rs, rz, ry, B, n,
-                              dtype)
-
-    def factor(d):
-        H = q + g * g * d
-        fac = _m_factor(A, 1.0 / H, use_kernels) if neq > 0 else None
-        return H, fac
-
-    # ---- Init: d = 1, RHS (p, 0, -h, -b) ----
-    if init is None:
-        ones = torch.ones((B, m), dtype=dtype, device=device)
-        H0, fac0 = factor(ones)
-        x, s, z, y = solve_newton(H0, fac0, p, None, -h,
-                                  -b if neq > 0 else None, ones)
-
-        def shift_pos(v):
-            mn = v.amin(dim=-1, keepdim=True)
-            return torch.where(mn < 0, v - mn + 1.0, v)
-
-        s = shift_pos(s)
-        z = shift_pos(z)
-    else:
-        x, s, z, y = init
-        s = torch.clamp(s, min=config.warm_start_min)
-        z = torch.clamp(z, min=config.warm_start_min)
-    if y is None:
-        y = torch.zeros((B, 0), dtype=dtype, device=device)
-
-    def norm(v):
-        return torch.linalg.vector_norm(v, dim=-1)
-
-    def residuals(x, s, z, y):
-        rx = q * x + p + g * z
-        if neq > 0:
-            rx = rx + btmv(A, y)
-            ry = bmv(A, x) - b
-            y_resid = norm(ry)
-        else:
-            ry = None
-            y_resid = torch.zeros((B,), dtype=dtype, device=device)
-        rz = g * x + s - h
-        mu = torch.abs((s * z).sum(dim=-1) / m)
-        resids = y_resid + norm(rz) + norm(rx) + m * mu
-        return rx, rz, ry, mu, resids
-
-    one = torch.ones((), dtype=dtype, device=device)
-    zero = torch.zeros((), dtype=dtype, device=device)
-
-    def step_min(z, s, dz, ds):
-        return torch.minimum(_step_to_boundary(z, dz),
-                             _step_to_boundary(s, ds))
-
-    def composed_step(x, s, z, y, mu, rx, rz, ry):
-        d = z / s
-        H, fac = factor(d)
-
-        # Predictor (rs := z).
-        dx_a, ds_a, dz_a, dy_a = solve_newton(H, fac, rx, z, rz, ry, d)
-        alpha = torch.minimum(step_min(z, s, dz_a, ds_a), one).unsqueeze(-1)
-        t1 = ((s + alpha * ds_a) * (z + alpha * dz_a)).sum(dim=-1)
-        t2 = (s * z).sum(dim=-1)
-        sig = (t1 / t2) ** 3
-
-        # Corrector: RHS zero except rs.
-        rs_c = ((-mu * sig).unsqueeze(-1) + ds_a * dz_a) / s
-        dx_c, ds_c, dz_c, dy_c = solve_newton(H, fac, None, rs_c, None,
-                                              None, d)
-        dx, ds, dz = dx_a + dx_c, ds_a + ds_c, dz_a + dz_c
-        dy = (dy_a + dy_c) if neq > 0 else None
-
-        # Gondzio centrality corrections, accepted per lane when the step
-        # lengthens.
-        for _ in range(config.n_correctors):
-            a_g = torch.minimum(step_min(z, s, dz, ds), one)
-            a_t = torch.minimum(1.08 * a_g + 0.08, one).unsqueeze(-1)
-            v = (s + a_t * ds) * (z + a_t * dz)
-            mu_t = (sig * mu).unsqueeze(-1)
-            rs_g = (v - torch.minimum(torch.maximum(v, 0.1 * mu_t),
-                                      10.0 * mu_t)) / s
-            ddx, dds, ddz, ddy = solve_newton(H, fac, None, rs_g, None,
-                                              None, d)
-            dz_n, ds_n = dz + ddz, ds + dds
-            a_n = torch.minimum(step_min(z, s, dz_n, ds_n), one)
-            acc = (a_n > a_g).unsqueeze(-1)
-            dz = torch.where(acc, dz_n, dz)
-            ds = torch.where(acc, ds_n, ds)
-            dx = torch.where(acc, dx + ddx, dx)
-            if neq > 0:
-                dy = torch.where(acc, dy + ddy, dy)
-
-        alpha = torch.minimum(0.999 * step_min(z, s, dz, ds), one)
-        lane_bad = (torch.isnan(dx).any(-1) | torch.isnan(ds).any(-1)
-                    | torch.isnan(dz).any(-1))
-        if neq > 0:
-            lane_bad = lane_bad | torch.isnan(dy).any(-1)
-        msk = lane_bad.unsqueeze(-1)
-        alpha = torch.where(msk, zero, alpha.unsqueeze(-1))
-        x = x + alpha * torch.where(msk, zero, dx)
-        s = s + alpha * torch.where(msk, zero, ds)
-        z = z + alpha * torch.where(msk, zero, dz)
-        if neq > 0:
-            y = y + alpha * torch.where(msk, zero, dy)
-        return x, s, z, y
-
-    inf = torch.full((B,), float("inf"), dtype=dtype, device=device)
-    best_x, best_s, best_z, best_y = x, s, z, y
-    best_resids = inf
-    mu = torch.zeros((B,), dtype=dtype, device=device)
-    n_not = torch.zeros((B,) if per_lane_term else (), dtype=torch.int32,
-                        device=device)
-    lane_done = torch.zeros((B,), dtype=torch.bool, device=device)
-    iterations = 0
-
-    for it in range(config.max_iter):
-        iterations = it + 1
-        rx, rz, ry, mu, resids = residuals(x, s, z, y)
-
-        improved_strict = resids < best_resids
-        improved = resids < best_resids * (1.0 - improve_margin)
-        best_resids = torch.where(improved_strict, resids, best_resids)
-        imp = improved_strict.unsqueeze(-1)
-        best_x = torch.where(imp, x, best_x)
-        best_s = torch.where(imp, s, best_s)
-        best_z = torch.where(imp, z, best_z)
-        if neq > 0:
-            best_y = torch.where(imp, y, best_y)
-
-        n_not, lane_done, done = exit_test(config, per_lane_term, improved,
-                                           n_not, lane_done, 1,
-                                           (best_resids,), mu)
-        if bool(done):  # the one host read per iteration
-            break
-        if use_fused:
-            x, s, z, y = fused_step(x, s, z, y, rx, rz, ry)
-        else:
-            x, s, z, y = composed_step(x, s, z, y, mu, rx, rz, ry)
-
-    if config.verbose >= 0:
-        warn_inaccurate(config, best_resids)
-
-    stats = SolveStats(
-        iterations=torch.tensor(iterations, dtype=torch.int32,
-                                device=device),
-        best_resids=best_resids, mu=mu,
-        converged=best_resids < config.eps)
+    out = ipm_loop(config, (x, s, z, y), score,
+                   fused_step if use_fused else composed_step,
+                   resolve_improve_margin(config, dtype))
+    stats = finish_stats(config, out.iterations, out.best_resids, out.mu)
+    best_x, best_s, best_z, best_y = out.best
     return QPSolution(z=best_x, nu=best_y, lam=best_z, s=best_s, stats=stats)
 
 

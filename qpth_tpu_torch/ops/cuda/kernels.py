@@ -177,10 +177,15 @@ def _check(name, R, vecs, B, m, mats=(), more_vecs=(), nz=0, neq=0,
                          f"the one-block shared memory fit for {R.dtype}")
 
 
-def _launch_error(name, err):
+def _launch(variant, fn, device, *args):
+    """``fn(*args, stream)`` on ``device``'s current stream; raises where
+    the launch failed and counts it under ``LAUNCHES[variant]``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed "
+        raise RuntimeError(f"{variant}: CUDA kernel launch failed "
                            f"(cudaError_t {err})")
+    LAUNCHES[variant] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -220,15 +225,11 @@ def factor_inv(R, dinv, rhs=None, z=None):
     fn = _fn("factor_inv", f"qpth_factor_inv_{_SUFFIX[R.dtype]}", 6, 3)
     Linv = torch.empty((B, m, m), dtype=R.dtype, device=R.device)
     x = torch.empty_like(rhs) if rhs is not None else None
-    with torch.cuda.device(R.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(R.data_ptr(), dinv.data_ptr(),
-                 rhs.data_ptr() if rhs is not None else None,
-                 z.data_ptr() if z is not None else None,
-                 Linv.data_ptr(), x.data_ptr() if x is not None else None,
-                 B, m, int(R.shape[0] > 1), stream)
-    _launch_error(variant, err)
-    LAUNCHES[variant] += 1
+    _launch(variant, fn, R.device, R.data_ptr(), dinv.data_ptr(),
+            rhs.data_ptr() if rhs is not None else None,
+            z.data_ptr() if z is not None else None, Linv.data_ptr(),
+            x.data_ptr() if x is not None else None, B, m,
+            int(R.shape[0] > 1))
     if m <= factor_inv_tile_max(R.dtype):
         LAUNCHES["factor_inv_tile"] += 1
     return Linv if rhs is None else (Linv, x)
@@ -299,11 +300,8 @@ def inv_solve(Linv, rhs):
         return inv_solve_plain(Linv, rhs)
     fn = _fn("inv_solve", f"qpth_inv_solve_{_SUFFIX[Linv.dtype]}", 3, 2)
     x = torch.empty_like(rhs)
-    with torch.cuda.device(Linv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(Linv.data_ptr(), rhs.data_ptr(), x.data_ptr(), B, m, stream)
-    _launch_error("inv_solve", err)
-    LAUNCHES["inv_solve"] += 1
+    _launch("inv_solve", fn, Linv.device, Linv.data_ptr(), rhs.data_ptr(),
+            x.data_ptr(), B, m)
     return x
 
 
@@ -425,14 +423,10 @@ def ipm_step_xfree(R, s, z, q, n_correctors: int = 0):
              8, 4)
     zeta, s_out, z_out = (torch.empty_like(s) for _ in range(3))
     alpha = torch.empty((B,), dtype=s.dtype, device=s.device)
-    with torch.cuda.device(R.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(R.data_ptr(), s.data_ptr(), z.data_ptr(), q.data_ptr(),
-                 zeta.data_ptr(), s_out.data_ptr(), z_out.data_ptr(),
-                 alpha.data_ptr(), B, m, int(R.shape[0] > 1),
-                 int(n_correctors), stream)
-    _launch_error("ipm_step_xfree", err)
-    LAUNCHES["ipm_step_xfree"] += 1
+    _launch("ipm_step_xfree", fn, R.device, R.data_ptr(), s.data_ptr(),
+            z.data_ptr(), q.data_ptr(), zeta.data_ptr(), s_out.data_ptr(),
+            z_out.data_ptr(), alpha.data_ptr(), B, m, int(R.shape[0] > 1),
+            int(n_correctors))
     return zeta, s_out, z_out, alpha
 
 
@@ -465,15 +459,11 @@ def ipm_step(R, iGT, x, s, z, q, ip, n_correctors: int = 0):
     fn = _fn("ipm_step", f"qpth_ipm_step_{_SUFFIX[R.dtype]}", 11, 5)
     x_out, s_out, z_out = (torch.empty_like(v) for v in (x, s, z))
     alpha = torch.empty((B,), dtype=s.dtype, device=s.device)
-    with torch.cuda.device(R.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(R.data_ptr(), iGT.data_ptr(), x.data_ptr(), s.data_ptr(),
-                 z.data_ptr(), q.data_ptr(), ip.data_ptr(),
-                 x_out.data_ptr(), s_out.data_ptr(), z_out.data_ptr(),
-                 alpha.data_ptr(), B, m, nz, _batched_bits(B, R, iGT),
-                 int(n_correctors), stream)
-    _launch_error("ipm_step", err)
-    LAUNCHES["ipm_step"] += 1
+    _launch("ipm_step", fn, R.device, R.data_ptr(), iGT.data_ptr(),
+            x.data_ptr(), s.data_ptr(), z.data_ptr(), q.data_ptr(),
+            ip.data_ptr(), x_out.data_ptr(), s_out.data_ptr(),
+            z_out.data_ptr(), alpha.data_ptr(), B, m, nz,
+            _batched_bits(B, R, iGT), int(n_correctors))
     return x_out, s_out, z_out, alpha
 
 
@@ -520,12 +510,8 @@ def ipm_step_eq(R, iGT, S21, W, iS11, S11, iAT, x, s, z, y, q, ip, rb,
     alpha = torch.empty((B,), dtype=s.dtype, device=s.device)
     ptrs = [t.data_ptr() for t in (R,) + mats + (x, s, z, y, q, ip, rb, x_out,
                                                  s_out, z_out, y_out, alpha)]
-    with torch.cuda.device(R.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*ptrs, B, m, nz, neq, _batched_bits(B, R, *mats),
-                 int(n_correctors), stream)
-    _launch_error("ipm_step_eq", err)
-    LAUNCHES["ipm_step_eq"] += 1
+    _launch("ipm_step_eq", fn, R.device, *ptrs, B, m, nz, neq,
+            _batched_bits(B, R, *mats), int(n_correctors))
     return x_out, s_out, z_out, y_out, alpha
 
 
@@ -585,11 +571,8 @@ def diag_step(M, A, g, H, rx, rz, ry, x, s, z, y, n_correctors: int = 0):
             + outs]
     batched = sum(1 << k for k, T in enumerate((M, A, g))
                   if B > 1 and T.shape[0] == B)
-    with torch.cuda.device(M.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*ptrs, B, n, neq, batched, int(n_correctors), stream)
-    _launch_error("diag_step", err)
-    LAUNCHES["diag_step"] += 1
+    _launch("diag_step", fn, M.device, *ptrs, B, n, neq, batched,
+            int(n_correctors))
     return outs
 
 
@@ -693,16 +676,11 @@ def chol(R, dinv=None, rhs=None):
     fn = _fn("chol", f"qpth_chol_{_SUFFIX[R.dtype]}", 5, 3)
     Lt = torch.empty((B, m, m), dtype=R.dtype, device=R.device)
     x = torch.empty_like(rhs) if rhs is not None else None
-    with torch.cuda.device(R.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(R.data_ptr(),
-                 dinv.data_ptr() if dinv is not None else None,
-                 rhs.data_ptr() if rhs is not None else None, Lt.data_ptr(),
-                 x.data_ptr() if x is not None else None, B, m,
-                 int(R.shape[0] > 1), stream)
-    variant = "chol" if rhs is None else "chol_solve"
-    _launch_error(variant, err)
-    LAUNCHES[variant] += 1
+    _launch("chol" if rhs is None else "chol_solve", fn, R.device,
+            R.data_ptr(), dinv.data_ptr() if dinv is not None else None,
+            rhs.data_ptr() if rhs is not None else None, Lt.data_ptr(),
+            x.data_ptr() if x is not None else None, B, m,
+            int(R.shape[0] > 1))
     return Lt if rhs is None else (Lt, x)
 
 
@@ -768,12 +746,8 @@ def cho_solve(Lt, v, lower: bool = False):
     fn = _fn("cho_solve", f"qpth_cho_solve_{_SUFFIX[Lt.dtype]}", 3, 4)
     x = torch.empty_like(v)
     batched = Lt.shape[0] > 1
-    with torch.cuda.device(Lt.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(Lt.data_ptr(), v.data_ptr(), x.data_ptr(), B, n,
-                 int(batched), int(lower), stream)
-    _launch_error("cho_solve", err)
-    LAUNCHES["cho_solve"] += 1
+    _launch("cho_solve", fn, Lt.device, Lt.data_ptr(), v.data_ptr(),
+            x.data_ptr(), B, n, int(batched), int(lower))
     if not batched:
         LAUNCHES["cho_solve_shared"] += 1
     return x
@@ -823,11 +797,7 @@ def trinv(Lt):
                          f"memory fit for {Lt.dtype}")
     fn = _fn("trinv", f"qpth_trinv_{_SUFFIX[Lt.dtype]}", 2, 2)
     out = torch.empty_like(Lt)
-    with torch.cuda.device(Lt.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(Lt.data_ptr(), out.data_ptr(), B, n, stream)
-    _launch_error("trinv", err)
-    LAUNCHES["trinv"] += 1
+    _launch("trinv", fn, Lt.device, Lt.data_ptr(), out.data_ptr(), B, n)
     return out
 
 

@@ -222,43 +222,31 @@ def pre_factor_kkt(Q, G, A=None, *, inverse: bool = True,
 
 
 class KKTBackend(NamedTuple):
-    """The per-iteration factor/solve operations on T (counterpart of the
-    JAX package's ``KKTBackend``, with the lanes layout gone: ``prepare``
-    and ``prepare_vec`` are the identity on batch-major tensors, and the
-    fused steps take the cached factors as they are). ``fac`` is the
-    backend's factor of T: Linv (kernels backend), Lt (blocked) or a
-    ``HybridFactor`` (hybrid)."""
+    """The per-iteration factor and solves of T = R + diag(1/d)
+    (counterpart of the JAX package's ``KKTBackend``, with the lanes layout
+    gone: the kernels read the batch-major factors as they are, after one
+    :func:`prepare_factors`). ``fac`` is the backend's factor of T: Linv
+    (kernels backend), Lt (blocked), a ``HybridFactor`` (hybrid) or a
+    ``TPFactor`` (``parallel/intra.py``)."""
 
-    #: One-time layout preparation of the cached factors.
-    prepare: object
-    #: (R, d) -> fac of T = R + diag(1/d).
-    factor: object
     #: (fac, v) -> x solving (R + diag(1/d)) x = v on a factor made before.
     solve2: object
     #: (R, d, v) -> (fac, x) solving (R + diag(1/d)) x = v.
     factor_solve: object
     #: (R, d, q, z) -> (fac, x) solving (R + diag(1/d)) x = q - R z.
     factor_solve_rz: object
-    #: v -> loop-invariant vector in the backend's layout (fused steps).
-    prepare_vec: object
-    #: (R, iGT, x, s, z, q, ip, n_correctors) -> (x', s', z', alpha): one
-    #: fused iteration with the direct x update (neq == 0).
-    fused_step: object
-    #: (factors, x, s, z, y, q, ip, rb, n_correctors) ->
-    #: (x', s', z', y', alpha): one fused iteration with equality
-    #: constraints.
-    fused_step_eq: object
-    #: (R, s, z, q, n_correctors) -> (zeta, s', z', alpha): one fused
-    #: x-free iteration (neq == 0).
-    fused_step_xfree: object
     #: (L, v) -> x solving (L L^T) x = v on the lower Cholesky factor of Q
     #: or S11 (substitution mode); None: ``torch.cholesky_solve``. The
     #: JAX package passes one ``solve2`` for T, Q and S11 alike; here T's
     #: factor under the kernels backend is no Cholesky factor.
     q_solve2: object = None
+    #: Whether the fused iterations (``kernels.ipm_step_xfree``,
+    #: ``ipm_step``, ``ipm_step_eq``) stand in for the composed step where
+    #: they fit: the kernels backend's.
+    fused: bool = False
 
 
-def _prepare(f: KKTFactors) -> KKTFactors:
+def prepare_factors(f: KKTFactors) -> KKTFactors:
     """The kernels read each matrix in place: make them contiguous once per
     solve (a no-op for factors this module built)."""
     return f._replace(**{k: v.contiguous() for k, v in f._asdict().items()
@@ -266,11 +254,8 @@ def _prepare(f: KKTFactors) -> KKTFactors:
 
 
 def kernels_backend() -> KKTBackend:
-    """Kernel A's factor-inverse and the fused steps (plain versions on
-    CPU)."""
-
-    def factor(R, d):
-        return kernels.factor_inv(R, 1.0 / d)
+    """Kernel A's factor-inverse and ``inv_solve``, and the fused steps
+    (plain versions on CPU)."""
 
     def solve2(Linv, v):
         return kernels.inv_solve(Linv, v.contiguous())
@@ -284,26 +269,20 @@ def kernels_backend() -> KKTBackend:
         return kernels.factor_inv(R, 1.0 / d, q.contiguous(),
                                   z.contiguous())
 
-    def fused_step(R, iGT, x, s, z, q, ip, n_correctors):
-        return kernels.ipm_step(R, iGT, x.contiguous(), s.contiguous(),
-                                z.contiguous(), q, ip, n_correctors)
+    return KKTBackend(solve2=solve2, factor_solve=factor_solve,
+                      factor_solve_rz=factor_solve_rz, fused=True)
 
-    def fused_step_eq(f, x, s, z, y, q, ip, rb, n_correctors):
-        return kernels.ipm_step_eq(
-            f.R, f.invQ_GT, f.S21, f.W, f.invS11, f.S11, f.invQ_AT,
-            x.contiguous(), s.contiguous(), z.contiguous(), y.contiguous(),
-            q, ip, rb, n_correctors)
 
-    def fused_step_xfree(R, s, z, q, n_correctors):
-        return kernels.ipm_step_xfree(R, s.contiguous(), z.contiguous(), q,
-                                      n_correctors)
+def rz_by_substitution(factor_solve):
+    """``factor_solve_rz`` from ``factor_solve`` by the JAX package's
+    substitution w = x + z: (R + D^-1) w = q + z/d, so no R z product; its
+    float32 error is measured in PERF.md."""
 
-    return KKTBackend(prepare=_prepare, factor=factor, solve2=solve2,
-                      factor_solve=factor_solve,
-                      factor_solve_rz=factor_solve_rz,
-                      prepare_vec=lambda v: v.contiguous(),
-                      fused_step=fused_step, fused_step_eq=fused_step_eq,
-                      fused_step_xfree=fused_step_xfree)
+    def factor_solve_rz(R, d, q, z):
+        fac, w = factor_solve(R, d, q + z / d)
+        return fac, w - z
+
+    return factor_solve_rz
 
 
 def blocked_backend() -> KKTBackend:
@@ -313,23 +292,12 @@ def blocked_backend() -> KKTBackend:
     lower factors of Q and S11. No fused steps: the solver composes each
     iteration from one kernel C with its first solve and kernel D."""
 
-    def factor(R, d):
-        return chol_ops.factor_kkt_t(R, d)
-
     def factor_solve(R, d, v):
         return chol_ops.factor_solve_kkt(R, 1.0 / d, v)
 
-    def factor_solve_rz(R, d, q, z):
-        # The JAX package's substitution w = x + z: (R + D^-1) w = q + z/d,
-        # so no R z product; its float32 error is measured in PERF.md.
-        fac, w = factor_solve(R, d, q + z / d)
-        return fac, w - z
-
     return KKTBackend(
-        prepare=_prepare, factor=factor, solve2=chol_ops.cho_solve_vec_t,
-        factor_solve=factor_solve, factor_solve_rz=factor_solve_rz,
-        prepare_vec=None, fused_step=None, fused_step_eq=None,
-        fused_step_xfree=None,
+        solve2=chol_ops.cho_solve_vec_t, factor_solve=factor_solve,
+        factor_solve_rz=rz_by_substitution(factor_solve),
         q_solve2=lambda L, v: kernels.cho_solve(L, v.contiguous(),
                                                 lower=True))
 
@@ -339,23 +307,11 @@ def hybrid_backend() -> KKTBackend:
     default block: ``use_pallas="hybrid"``, and "auto" past kernel A's fit
     on CUDA. No fused steps: the solver composes each iteration."""
 
-    def factor(R, d):
-        return hybrid.factor_hybrid(R, dinv=1.0 / d)
-
     def factor_solve(R, d, v):
         return hybrid.factor_solve_hybrid(R, v, dinv=1.0 / d)
 
-    def factor_solve_rz(R, d, q, z):
-        # The JAX package's substitution w = x + z: (R + D^-1) w = q + z/d,
-        # so no R z product; its float32 cost is measured in PERF.md.
-        fac, w = factor_solve(R, d, q + z / d)
-        return fac, w - z
-
-    return KKTBackend(
-        prepare=_prepare, factor=factor, solve2=hybrid.solve_hybrid,
-        factor_solve=factor_solve, factor_solve_rz=factor_solve_rz,
-        prepare_vec=None, fused_step=None, fused_step_eq=None,
-        fused_step_xfree=None)
+    return KKTBackend(solve2=hybrid.solve_hybrid, factor_solve=factor_solve,
+                      factor_solve_rz=rz_by_substitution(factor_solve))
 
 
 def no_library_path(use_pallas) -> None:

@@ -208,22 +208,12 @@ def tp_backend(group) -> kkt_ops.KKTBackend:
     """The hybrid backend over the distributed factor: ``fac`` of T is this
     rank's :class:`TPFactor`, ``R`` in the factors its band of rows."""
 
-    def factor(R, d):
-        return factor_hybrid_tp(R, group=group, dinv=1.0 / d)
-
     def factor_solve(R, d, v):
         return factor_solve_hybrid_tp(R, v, group=group, dinv=1.0 / d)
 
-    def factor_solve_rz(R, d, q, z):
-        # The hybrid backend's substitution w = x + z (ops/kkt.py).
-        fac, w = factor_solve(R, d, q + z / d)
-        return fac, w - z
-
     return kkt_ops.KKTBackend(
-        prepare=kkt_ops._prepare, factor=factor, solve2=solve_hybrid_tp,
-        factor_solve=factor_solve, factor_solve_rz=factor_solve_rz,
-        prepare_vec=None, fused_step=None, fused_step_eq=None,
-        fused_step_xfree=None)
+        solve2=solve_hybrid_tp, factor_solve=factor_solve,
+        factor_solve_rz=kkt_ops.rz_by_substitution(factor_solve))
 
 
 def _gather(part, n: int, dim: int, r0: int, group):

@@ -24,7 +24,9 @@ from torch.autograd.profiler import record_function
 
 #: The solver's span names, outermost first. ``qpth.prefactor`` and
 #: ``qpth.ipm.*`` sit inside ``qpth.solve`` (``qpth.prefactor`` also under
-#: ``prefactor_qp`` and a backward that rebuilds the factors); score, exit
+#: ``prefactor_qp`` and a backward that rebuilds the factors; the diagonal
+#: and banded tiers, which share the dense tier's loop, record its spans
+#: with no ``qpth.solve`` around them); score, exit
 #: and step inside ``qpth.ipm.loop``, once per iteration (no step on the
 #: iteration that exits); inside a composed step (no fused kernel),
 #: ``qpth.ipm.step.factor`` around the factor of T with its first solve

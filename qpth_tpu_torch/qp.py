@@ -204,7 +204,7 @@ def _kkt_directions(factors, Gb, Ab, zhat, lam, s, dl_dz, config):
 
     backend = kkt_ops.resolve_backend(config.use_pallas, zhat.dtype, nineq,
                                       zhat.device)
-    fs = backend.prepare(factors)
+    fs = kkt_ops.prepare_factors(factors)
     if fs.invQ_GT is not None:
         # Inverse mode: the RHS and back-substitution products fold into
         # the cached Q^-1 G^T / Q^-1 A^T; G and A are never read.

@@ -247,16 +247,16 @@ def test_solver_on_hybrid_backend_matches_jax_f32():
 
 def test_auto_past_the_fit_routes_to_hybrid(small_fit):
     be = kkt_ops.resolve_backend("auto", torch.float32, 40, "cpu")
-    assert be.fused_step is None and be.solve2 is hybrid.solve_hybrid
+    assert not be.fused and be.solve2 is hybrid.solve_hybrid
     for value in (True, "lanes"):
         assert kkt_ops.resolve_backend(value, torch.float64, 40,
-                                       "cpu").fused_step is None
+                                       "cpu").fused is False
     be = kkt_ops.resolve_backend("auto", torch.float32, 30, "cpu")
-    assert be.fused_step is not None
+    assert be.fused
     for m in (5, 300):
         for dev in ("cpu", "cuda"):
             assert kkt_ops.resolve_backend("hybrid", torch.float32, m,
-                                           dev).fused_step is None
+                                           dev).fused is False
     invQ, facQ = kkt_ops._q_rep(torch.tensor(_spd(40, B=2)[0]))
     assert invQ is None and isinstance(facQ, hybrid.HybridFactor)
     assert [G.shape[-1] for G in facQ.Gs] == [16, 16, 8]
@@ -271,7 +271,7 @@ def test_blocked_past_its_fit_and_hybrid_xla_raise():
     with pytest.raises(NotImplementedError, match="'hybrid' solves past"):
         kkt_ops.resolve_backend("blocked", torch.float64, 169, "cuda")
     be = kkt_ops.resolve_backend("hybrid_xla", torch.float32, 5, "cpu")
-    assert be.solve2 is hybrid.solve_hybrid and be.fused_step is None
+    assert be.solve2 is hybrid.solve_hybrid and not be.fused
     Q, p, G, h, _, _ = make_feasible_qp(np.random.RandomState(4), nz=6,
                                         nineq=5, nbatch=4)
     args = [torch.tensor(v, dtype=torch.float32) for v in (Q, p, G, h)]
@@ -404,7 +404,7 @@ def test_auto_on_cpu_takes_any_size():
                                                 G, h)]
     kw = dict(check_Q_spd=False, eps=1e-9, refine_steps=0)
     assert kkt_ops.resolve_backend("auto", torch.float64, 300,
-                                   "cpu").fused_step is not None
+                                   "cpu").fused
     got = {}
     for value in ("auto", "hybrid"):
         args = [torch.tensor(v, requires_grad=True) for v in data]

@@ -171,7 +171,7 @@ def test_hybrid_xla_is_the_hybrid_backend():
 
     for dt in (torch.float32, torch.float64):
         be = kkt_ops.resolve_backend("hybrid_xla", dt, 300, "cuda")
-        assert be.solve2 is hybrid.solve_hybrid and be.fused_step is None
+        assert be.solve2 is hybrid.solve_hybrid and not be.fused
         cfg = qt.SolverConfig(use_pallas="hybrid_xla")
         assert (kkt_ops.resolve_prefactor_modes(cfg, dt)
                 == kkt_ops.resolve_prefactor_modes(

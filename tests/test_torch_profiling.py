@@ -91,7 +91,7 @@ PARENTS = {
 }
 
 
-#: The spans of a composed step (``core/pdipm.py::composed_step``), which a
+#: The spans of a composed step (``core/pdipm.py::pc_direction``), which a
 #: fused step records none of.
 COMPOSED = ("qpth.ipm.step.factor", "qpth.ipm.step.solve")
 

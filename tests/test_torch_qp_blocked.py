@@ -220,7 +220,7 @@ def test_kernels_backend_values_are_the_default(value):
     npt.assert_array_equal(z.numpy(),
                            qt.solve_qp(*args, device="cpu").numpy())
     assert kkt_ops.resolve_backend(value, torch.float32, 5,
-                                   "cpu").fused_step is not None
+                                   "cpu").fused
 
 
 @pytest.mark.parametrize("value,match", [
@@ -274,7 +274,7 @@ def test_lanes_with_subst_raises_as_in_jax(value):
 
 def test_blocked_backend_has_no_fused_step_and_its_own_fit():
     be = kkt_ops.resolve_backend("blocked", torch.float32, 200, "cuda")
-    assert be.fused_step is None and be.fused_step_xfree is None
+    assert not be.fused
     assert be.q_solve2 is not None
     with pytest.raises(NotImplementedError, match="solves past it"):
         kkt_ops.resolve_backend("blocked", torch.float32, 240, "cuda")
@@ -283,7 +283,7 @@ def test_blocked_backend_has_no_fused_step_and_its_own_fit():
     # (m <= 237): "auto" takes the hybrid backend there.
     kkt_ops.resolve_backend("blocked", torch.float32, 238, "cuda")
     be = kkt_ops.resolve_backend("auto", torch.float32, 238, "cuda")
-    assert be.fused_step is None and be.solve2 is hybrid.solve_hybrid
+    assert not be.fused and be.solve2 is hybrid.solve_hybrid
 
 
 def test_diagonal_tier_treats_blocked_as_auto():

@@ -248,7 +248,7 @@ def test_kernels_backend_takes_widths_of_one_tile(m):
     route to the kernels backend and the fused steps on CUDA in float32,
     not to the hybrid backend."""
     backend = kkt_ops.resolve_backend("auto", torch.float32, m, "cuda")
-    assert backend.fused_step is not None
+    assert backend.fused
     assert kkt_ops.fused_step_supported("cuda", torch.float32, m)
 
 
@@ -304,7 +304,7 @@ def test_unported_branch_raises(case):
         # The shared-memory fit is checked on CUDA only; the predicate is
         # device-independent, so ask for the CUDA backend directly.
         be = kkt_ops.resolve_backend("auto", torch.float32, 238, "cuda")
-        assert be.fused_step is None and be.solve2 is hybrid.solve_hybrid
+        assert not be.fused and be.solve2 is hybrid.solve_hybrid
         return
     Q, p, G, h = _qp(torch.float64)
     sol = qt.solve_qp_full(Q, p, G, h, config=spec["config"], device="cpu")
