@@ -89,7 +89,7 @@ chol_kernel(const T* __restrict__ R, const T* __restrict__ dinv,
   }
   __syncthreads();
 
-  factor_panels<T, SHIFT, RHS>(Tm, m, dv, isqv, ys, warp, lane);
+  factor_panels<T, SHIFT, RHS>(Tm, SquareTile{m, m}, dv, isqv, ys, warp, lane);
 
   T* Lb = Lt + b * m * m;
   if (!RHS) {
@@ -104,7 +104,7 @@ chol_kernel(const T* __restrict__ R, const T* __restrict__ dinv,
   } else {
     store_triangle<T, true>(Lb, Tm, m, 1, kWarps - 1, warp, lane);
   }
-  back_panels(Tm, m, isqv, xs, warp, lane);
+  back_panels(Tm, SquareTile{m, m}, isqv, xs, warp, lane);
   for (int i = threadIdx.x; i < m; i += blockDim.x) x[b * m + i] = xs[i];
 }
 

@@ -22,6 +22,9 @@ constexpr int kWarps = kThreads / 32;
 // same counts in their fit predicate.
 constexpr int kSmemVectors = 8;
 constexpr int kSmemEqVectors = 4;
+// Shared memory one block may use on Hopper, dynamic and static together
+// (227 KB; kernels.py::SMEM_LIMIT).
+constexpr size_t kSmemLimit = 232448;
 
 template <typename T>
 __host__ __device__ constexpr size_t smem_bytes(int m, int nz = 0, int neq = 0) {
@@ -84,16 +87,17 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Reduce one value per thread over the whole block; every thread gets the
-// result. `red` holds kWarps entries. All threads of the block must call it.
-template <typename T, typename Op>
+// Reduce one value per thread over the whole block of NW warps; every
+// thread gets the result. `red` holds NW entries. All threads of the block
+// must call it.
+template <int NW = kWarps, typename T, typename Op>
 __device__ T block_reduce(T v, Op op, T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, off));
   if (lane == 0) red[warp] = v;
   __syncthreads();
   T r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = op(r, red[w]);
+  for (int w = 1; w < NW; ++w) r = op(r, red[w]);
   __syncthreads();  // red may be reused right away
   return r;
 }
@@ -113,12 +117,13 @@ __device__ void smem_matvec(const T* M, const T* v, T* out, int m) {
 }
 
 // out[i] = sum_c M[i][c] v[c] for a row-major rows x cols matrix M in device
-// memory, v and out in shared memory. One warp per row, its lanes on
-// consecutive addresses. The caller places the barriers.
-template <typename T>
+// memory, v and out in shared memory. One warp per row (of a block of NW
+// warps), its lanes on consecutive addresses. The caller places the
+// barriers.
+template <int NW = kWarps, typename T>
 __device__ void gmem_matvec(const T* __restrict__ M, const T* v, T* out, int rows, int cols) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = warp; i < rows; i += kWarps) {
+  for (int i = warp; i < rows; i += NW) {
     const T* row = M + size_t(i) * cols;
     T acc = T(0);
     for (int c = lane; c < cols; c += 32) acc += row[c] * v[c];

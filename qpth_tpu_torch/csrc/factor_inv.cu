@@ -106,7 +106,7 @@ factor_inv_kernel(const T* __restrict__ R, const T* __restrict__ dinv,
     __syncthreads();
   }
 
-  factor_panels<T, true, RHS>(Tm, m, dv, isqv, ys, warp, lane);
+  factor_panels<T, true, RHS>(Tm, SquareTile{m, m}, dv, isqv, ys, warp, lane);
 
   // The inverse (trinv_panels) and, with RHS, x = L^-T y in warp 0
   // (back_warp). Both read Lt's strict upper triangle and isqv only, and the
@@ -114,7 +114,7 @@ factor_inv_kernel(const T* __restrict__ R, const T* __restrict__ dinv,
   // each (m <= 224) warp 0 runs the back substitution beside the inverse;
   // else first, before joining it.
   const bool beside = RHS && panels(m) < kWarps;
-  if (RHS && warp == 0) back_warp(Tm, m, isqv, ys, lane);
+  if (RHS && warp == 0) back_warp(Tm, SquareTile{m, m}, isqv, ys, lane);
   if (!beside || warp != 0)
     trinv_panels(Tm, m, isqv, beside ? 1 : 0, beside ? kWarps - 1 : kWarps,
                  warp, lane);

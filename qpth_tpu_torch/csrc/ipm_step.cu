@@ -65,3 +65,5 @@ extern "C" int qpth_ipm_step_f64(const void* R, const void* iGT, const void* x,
   return qpth::launch<double>(R, iGT, x, s, z, q, ip, x_out, s_out, z_out, alpha,
                               B, m, nz, batched, n_correctors, stream);
 }
+
+QPTH_STEP_SHAPE(qpth::kStepX)

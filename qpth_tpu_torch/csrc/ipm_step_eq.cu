@@ -75,3 +75,5 @@ static int launch(const void* const* mats, const void* const* vecs,
 
 QPTH_STEP_EQ(f32, float)
 QPTH_STEP_EQ(f64, double)
+
+QPTH_STEP_SHAPE(qpth::kStepEq)

@@ -14,8 +14,10 @@
 // vectors written). The factor runs on kernel C's 32-row panels and each
 // solve is two substitutions by panels (the body's notes): the 32-step
 // chains of one warp per panel and the block barriers between them
-// (step_barriers: 34 at m = 100, n_correctors = 0) set its time, against 4
-// (float32) or 2 (float64) blocks an SM.
+// (step_barriers: 33 at m = 100, n_correctors = 0) set a block's time, and
+// the blocks an SM holds at once the kernel's: float32 up to m = 100 runs
+// blocks of 6 warps, 5 an SM, against 4 of 8 warps
+// (ipm_step_body.cuh::step_warps); float64 8 warps, 2 an SM.
 #include "ipm_step_body.cuh"
 
 namespace qpth {
@@ -68,3 +70,5 @@ extern "C" int qpth_ipm_step_xfree_f64(const void* R, const void* s,
 extern "C" int qpth_ipm_step_barriers(int m, int n_correctors) {
   return qpth::step_barriers(m, n_correctors);
 }
+
+QPTH_STEP_SHAPE(qpth::kStepXFree)

@@ -1,9 +1,9 @@
 // Panel helpers of kernels A (csrc/factor_inv.cu), C (csrc/chol.cu) and E
 // (csrc/trinv.cu) and of the fused IPM steps (csrc/ipm_step_body.cuh): one
-// thread block per QP holds one m x m row-major tile (leading dimension m) in
-// shared memory, and the factorization, its substitutions or the inversion
-// walk it in panels of 32 rows, one warp's width. The dependent chains run
-// only inside a warp, over a panel's 32 x 32 diagonal block, in registers
+// thread block per QP holds one m x m row-major tile in shared memory
+// (SquareTile: row stride ld), and the factorization, its substitutions or
+// the inversion walk it in panels of 32 rows, one warp's width. The
+// dependent chains run only inside a warp, over a panel's 32 x 32 diagonal block, in registers
 // and lane shuffles; every warp then works on the block products between
 // panels, each lane on a 4 x 4 register tile, so each shared-memory load
 // feeds two multiply-adds instead of a third of one. A panel costs a few
@@ -21,6 +21,15 @@ namespace qpth {
 
 constexpr int kPanelWidth = 32;          // rows per panel = lanes per warp
 constexpr unsigned kWarpAll = 0xffffffffu;
+
+// The tile: m x m, row r at r ld (kernels A, C and E with ld = m, their
+// lower triangle holding inv(L) or never read; the fused steps with an odd
+// ld where it fits, so that the 32 words of a column fall in 32 banks). The
+// factorization and the substitutions store only on and above the diagonal.
+struct SquareTile {
+  int m, ld;
+  __host__ __device__ size_t words() const { return size_t(m) * ld; }
+};
 
 // Blocks per SM a panel kernel is compiled for (__launch_bounds__' second
 // argument, so at most 65536 / (256 n) registers a thread): without the cap
@@ -116,13 +125,13 @@ __device__ __forceinline__ void tile_update(T (&acc)[MI][4], const T* A,
 // Not inlined, as panel_solve_column below: each then gets its own register
 // allocation, and the kernels' spills are gone (PERF.md §6).
 template <typename T, bool SHIFT>
-__device__ __noinline__ void chol_diag_block(T* Tm, int m, int p0, int w,
+__device__ __noinline__ void chol_diag_block(T* Tm, int ld, int p0, int w,
                                                 const T* dinv, T* isqv,
                                                 int lane) {
   T d[kPanelWidth];
 #pragma unroll
   for (int r = 0; r < kPanelWidth; ++r)
-    d[r] = (r < w && r <= lane && lane < w) ? Tm[(p0 + r) * m + p0 + lane]
+    d[r] = (r < w && r <= lane && lane < w) ? Tm[(p0 + r) * ld + p0 + lane]
                                            : T(0);
   // Lane j adds the shift to its own pivot when step j reaches it: the
   // shift's load stays off the chain.
@@ -140,7 +149,7 @@ __device__ __noinline__ void chol_diag_block(T* Tm, int m, int p0, int w,
   }
 #pragma unroll
   for (int r = 0; r < kPanelWidth; ++r)
-    if (r < w && r <= lane && lane < w) Tm[(p0 + r) * m + p0 + lane] = d[r];
+    if (r < w && r <= lane && lane < w) Tm[(p0 + r) * ld + p0 + lane] = d[r];
 }
 
 // The panel's rows of Lt beyond its diagonal block, one column at a time:
@@ -155,7 +164,7 @@ __device__ __noinline__ void chol_diag_block(T* Tm, int m, int p0, int w,
 constexpr int kSub = 8;
 
 template <typename T>
-__device__ __noinline__ void panel_solve_column(const T* Tm, int m, int p0,
+__device__ __noinline__ void panel_solve_column(const T* Tm, int ld, int p0,
                                                    int w, const T* isqv,
                                                    T* col, int stride) {
   for (int s0 = 0; s0 < w; s0 += kSub) {
@@ -167,7 +176,7 @@ __device__ __noinline__ void panel_solve_column(const T* Tm, int m, int p0,
     for (int j = 0; j < kSub; ++j) {
       if (j >= ws) break;
       x[j] *= isqv[p0 + s0 + j];
-      const T* Uj = Tm + (p0 + s0 + j) * m + p0 + s0;
+      const T* Uj = Tm + (p0 + s0 + j) * ld + p0 + s0;
 #pragma unroll
       for (int i = j + 1; i < kSub; ++i)
         if (i < ws) x[i] -= Uj[i] * x[j];
@@ -177,7 +186,7 @@ __device__ __noinline__ void panel_solve_column(const T* Tm, int m, int p0,
       if (j < ws) col[(s0 + j) * stride] = x[j];
     // The later rows (only a whole sub-block has any); rows past w are
     // neither read nor written.
-    const T* U = Tm + (p0 + s0) * m + p0;
+    const T* U = Tm + (p0 + s0) * ld + p0;
     for (int i = s0 + ws; i < w; i += 4) {
       T acc[4];
       int iu[4];
@@ -189,7 +198,7 @@ __device__ __noinline__ void panel_solve_column(const T* Tm, int m, int p0,
 #pragma unroll
       for (int j = 0; j < kSub; ++j)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) acc[u] -= U[j * m + iu[u]] * x[j];
+        for (int u = 0; u < 4; ++u) acc[u] -= U[j * ld + iu[u]] * x[j];
 #pragma unroll
       for (int u = 0; u < 4; ++u)
         if (i + u < w) col[(i + u) * stride] = acc[u];
@@ -317,10 +326,11 @@ __device__ __forceinline__ void trinv_panels(T* Tm, int n, const T* rd, int w0,
 
 // One warp's 4 MI x 32 tile at (rb, cb) of the trailing matrix takes the
 // panel's rank-w update, T[r][c] -= sum_k W[k][r] W[k][c] (W: the panel's
-// rows of Lt, leading dimension m), on and above the diagonal.
+// rows of Lt, at row stride L.ld), on and above the diagonal.
 template <typename T, int MI>
-__device__ __forceinline__ void update_tile(T* Tm, const T* W, int m, int w,
-                                            int rb, int cb, int lane) {
+__device__ __forceinline__ void update_tile(T* Tm, const T* W, SquareTile L,
+                                            int w, int rb, int cb, int lane) {
+  const int m = L.m, ld = L.ld;
   int r[MI], c[4], ar[MI], bc[4];
   tile_coords<MI>(rb, cb, lane, r, c);
 #pragma unroll
@@ -331,24 +341,24 @@ __device__ __forceinline__ void update_tile(T* Tm, const T* W, int m, int w,
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[i][q] = Tm[ar[i] * m + bc[q]];
-  tile_update<T, false, MI>(acc, W, W, m, ar, bc, 0, w);
+    for (int q = 0; q < 4; ++q) acc[i][q] = Tm[ar[i] * ld + bc[q]];
+  tile_update<T, false, MI>(acc, W, W, ld, ar, bc, 0, w);
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q)
-      if (r[i] < m && c[q] < m && c[q] >= r[i]) Tm[r[i] * m + c[q]] = acc[i][q];
+      if (r[i] < m && c[q] < m && c[q] >= r[i]) Tm[r[i] * ld + c[q]] = acc[i][q];
 }
 
 // r_i -= sum_{k < w} Lt[p0 + k][i] y[p0 + k]: row i below panel p0 takes
 // the panel's solution of the forward substitution L y = r (column i of the
 // panel's rows: consecutive rows on consecutive words).
 template <typename T>
-__device__ __forceinline__ void fwd_update_row(const T* Tm, int m, int p0,
-                                               int w, T* xs, int i) {
-  const T* U = Tm + p0 * m + i;
+__device__ __forceinline__ void fwd_update_row(const T* Tm, SquareTile L,
+                                               int p0, int w, T* xs, int i) {
+  const T* U = Tm + p0 * L.ld + i;
   T acc = xs[i];
-  for (int k = 0; k < w; ++k) acc -= U[k * m] * xs[p0 + k];
+  for (int k = 0; k < w; ++k) acc -= U[k * L.ld] * xs[p0 + k];
   xs[i] = acc;
 }
 
@@ -360,17 +370,18 @@ __device__ __forceinline__ void fwd_update_row(const T* Tm, int m, int p0,
 // whole: whole, their hoisted loads spilled the fused steps' state
 // (PERF.md §6).
 template <typename T>
-__device__ __forceinline__ void fwd_chain(const T* Tm, int m, int p0, int w,
-                                          const T* isqv, T* xs, int lane) {
+__device__ __forceinline__ void fwd_chain(const T* Tm, SquareTile L, int p0,
+                                          int w, const T* isqv, T* xs,
+                                          int lane) {
   const bool on = lane < w;
-  const T* Uj = Tm + p0 * m + p0 + (on ? lane : 0);
+  const T* Uj = Tm + p0 * L.ld + p0 + (on ? lane : 0);
   const T isq = on ? isqv[p0 + lane] : T(0);
   T rv = on ? xs[p0 + lane] : T(0);
 #pragma unroll 8
   for (int j = 0; j < w; ++j) {
     if (lane == j) rv *= isq;
     const T yj = __shfl_sync(kWarpAll, rv, j);
-    if (on && lane > j) rv -= Uj[j * m] * yj;
+    if (on && lane > j) rv -= Uj[j * L.ld] * yj;
   }
   if (on) xs[p0 + lane] = rv;
 }
@@ -378,9 +389,9 @@ __device__ __forceinline__ void fwd_chain(const T* Tm, int m, int p0, int w,
 // x_i -= sum_{k < w} Lt[i][p0 + k] x[p0 + k]: row i above panel p0 takes
 // the panel's solution.
 template <typename T>
-__device__ __forceinline__ void back_update_row(const T* Tm, int m, int p0,
-                                                int w, T* xs, int i) {
-  const T* Ui = Tm + i * m + p0;
+__device__ __forceinline__ void back_update_row(const T* Tm, SquareTile L,
+                                                int p0, int w, T* xs, int i) {
+  const T* Ui = Tm + i * L.ld + p0;
   T acc = xs[i];
   for (int k = 0; k < w; ++k) acc -= Ui[k] * xs[p0 + k];
   xs[i] = acc;
@@ -390,10 +401,11 @@ __device__ __forceinline__ void back_update_row(const T* Tm, int m, int p0,
 // block, column order, k descending: x_k = r_k isq_k, r_i -= Lt[i][k] x_k
 // (i < k); lane i holds r_i, the pivot's reciprocal is isqv's rsqrt.
 template <typename T>
-__device__ __forceinline__ void back_chain(const T* Tm, int m, int p0, int w,
-                                           const T* isqv, T* xs, int lane) {
+__device__ __forceinline__ void back_chain(const T* Tm, SquareTile L, int p0,
+                                           int w, const T* isqv, T* xs,
+                                           int lane) {
   const bool on = lane < w;
-  const T* Ui = Tm + (p0 + (on ? lane : 0)) * m + p0;
+  const T* Ui = Tm + (p0 + (on ? lane : 0)) * L.ld + p0;
   const T isq = on ? isqv[p0 + lane] : T(0);
   T rv = on ? xs[p0 + lane] : T(0);
 #pragma unroll 8
@@ -414,20 +426,22 @@ __device__ __forceinline__ void back_chain(const T* Tm, int m, int p0, int w,
 //       Lt[p, rest] = U_pp^-T T[p, rest], by forward substitution with isqv,
 //       in sub-blocks of 8 rows; with RHS, y's panel is one more column;
 //   (c) the warps apply the rank-32 update T[rest, rest] -= W^T W to the
-//       upper triangle on register tiles: first all eight to the next
-//       panel's diagonal block (4 rows each), then warp 0 factors it, (a)
-//       of the next panel, while the other seven update the rest (4 x 4
+//       upper triangle on register tiles: first all NW warps to the next
+//       panel's diagonal block (4 rows at a time), then warp 0 factors it,
+//       (a) of the next panel, while the other NW - 1 update the rest (4 x 4
 //       per lane) and y's later rows.
 // On entry the tile (and dinv, rhs) are published behind a barrier; it
 // returns behind one, after 3 panels(m) - 1 barriers: 1 after the first (a),
 // then 1 after (b), after the diagonal block's update and after (c), the
 // last panel (b)'s alone. Every element receives its rank-1 updates in pivot
-// order, as in kernels.py::chol_plain, and y's in the order of fwd_chain.
-template <typename T, bool SHIFT, bool RHS>
-__device__ __forceinline__ void factor_panels(T* Tm, int m, const T* dv,
+// order, as in kernels.py::chol_plain, and y's in the order of fwd_chain,
+// whatever the row stride and the block's warp count NW.
+template <typename T, bool SHIFT, bool RHS, int NW = kWarps>
+__device__ __forceinline__ void factor_panels(T* Tm, SquareTile L, const T* dv,
                                               T* isqv, T* ys, int warp,
                                               int lane) {
-  if (warp == 0) chol_diag_block<T, SHIFT>(Tm, m, 0, min(kPanelWidth, m), dv, isqv, lane);
+  const int m = L.m;
+  if (warp == 0) chol_diag_block<T, SHIFT>(Tm, L.ld, 0, min(kPanelWidth, m), dv, isqv, lane);
   __syncthreads();
   for (int p0 = 0; p0 < m; p0 += kPanelWidth) {
     const int w = min(kPanelWidth, m - p0);
@@ -436,32 +450,33 @@ __device__ __forceinline__ void factor_panels(T* Tm, int m, const T* dv,
     // with rhs, y's panel as one more column.
     for (int t = threadIdx.x; t < rest + (RHS ? 1 : 0); t += blockDim.x) {
       const bool is_y = RHS && t == rest;
-      panel_solve_column(Tm, m, p0, w, isqv, is_y ? ys + p0 : Tm + p0 * m + base + t,
-                         is_y ? 1 : m);
+      panel_solve_column(Tm, L.ld, p0, w, isqv,
+                         is_y ? ys + p0 : Tm + p0 * L.ld + base + t,
+                         is_y ? 1 : L.ld);
     }
     __syncthreads();
     if (rest == 0) break;
     // (c) the rank-w update of the trailing upper triangle. First the next
-    // panel's diagonal block, 4 rows a warp; then warp 0 factors it, (a) of
-    // the next panel, while the other warps update the rest (and y) in
-    // tiles of 16 x 32.
-    const T* W = Tm + p0 * m;
-    if (4 * warp < min(kPanelWidth, rest))
-      update_tile<T, 1>(Tm, W, m, w, base + 4 * warp, base, lane);
+    // panel's diagonal block, 4 rows a warp at a time; then warp 0 factors
+    // it, (a) of the next panel, while the other warps update the rest (and
+    // y) in tiles of 16 x 32.
+    const T* W = Tm + p0 * L.ld;
+    for (int rb = 4 * warp; rb < min(kPanelWidth, rest); rb += 4 * NW)
+      update_tile<T, 1>(Tm, W, L, w, base + rb, base, lane);
     __syncthreads();
     if (warp == 0) {
-      chol_diag_block<T, SHIFT>(Tm, m, base, min(kPanelWidth, rest), dv, isqv, lane);
+      chol_diag_block<T, SHIFT>(Tm, L.ld, base, min(kPanelWidth, rest), dv, isqv, lane);
     } else {
       const int ntc = (rest + kTileCols - 1) / kTileCols;
       const int ntiles = ntc * ((rest + kTileRows - 1) / kTileRows);
-      for (int t = warp - 1; t < ntiles; t += kWarps - 1) {
+      for (int t = warp - 1; t < ntiles; t += NW - 1) {
         const int tr = t / ntc, tc = t - tr * ntc;
         // Skip the tiles wholly below the diagonal, and the diagonal block's.
         if (tc < tr / 2 || (tc == 0 && tr < 2)) continue;
-        update_tile<T, 4>(Tm, W, m, w, base + kTileRows * tr, base + kTileCols * tc, lane);
+        update_tile<T, 4>(Tm, W, L, w, base + kTileRows * tr, base + kTileCols * tc, lane);
       }
       for (int t = threadIdx.x - 32; RHS && t < rest; t += blockDim.x - 32)
-        fwd_update_row(Tm, m, p0, w, ys, base + t);
+        fwd_update_row(Tm, L, p0, w, ys, base + t);
     }
     __syncthreads();
   }
@@ -475,23 +490,25 @@ __device__ __forceinline__ void factor_panels(T* Tm, int m, const T* dv,
 // warp 0 may come in late, their first phase is theirs (kernel C writes Lt
 // out there). panels(m) barriers, the last one before return.
 template <typename T>
-__device__ __forceinline__ void back_panels(const T* Tm, int m, const T* isqv,
-                                            T* xs, int warp, int lane) {
+__device__ __forceinline__ void back_panels(const T* Tm, SquareTile L,
+                                            const T* isqv, T* xs, int warp,
+                                            int lane) {
+  const int m = L.m;
   int p0 = (panels(m) - 1) * kPanelWidth;
   if (warp == 0) {
     __syncwarp();
-    back_chain(Tm, m, p0, m - p0, isqv, xs, lane);
+    back_chain(Tm, L, p0, m - p0, isqv, xs, lane);
   }
   __syncthreads();
   for (; p0 > 0; p0 -= kPanelWidth) {
     const int w = min(kPanelWidth, m - p0), q0 = p0 - kPanelWidth;
     if (warp == 0) {
-      back_update_row(Tm, m, p0, w, xs, q0 + lane);
+      back_update_row(Tm, L, p0, w, xs, q0 + lane);
       __syncwarp();
-      back_chain(Tm, m, q0, kPanelWidth, isqv, xs, lane);
+      back_chain(Tm, L, q0, kPanelWidth, isqv, xs, lane);
     } else {
       for (int i = threadIdx.x - 32; i < q0; i += blockDim.x - 32)
-        back_update_row(Tm, m, p0, w, xs, i);
+        back_update_row(Tm, L, p0, w, xs, i);
     }
     __syncthreads();
   }
@@ -505,14 +522,14 @@ __device__ __forceinline__ void back_panels(const T* Tm, int m, const T* isqv,
 // is published to the warp; it reads only Lt's strict upper triangle and
 // isqv.
 template <typename T>
-__device__ __forceinline__ void back_warp(const T* Tm, int m, const T* isqv,
-                                          T* xs, int lane) {
-  for (int p0 = (panels(m) - 1) * kPanelWidth; p0 >= 0; p0 -= kPanelWidth) {
-    const int w = min(kPanelWidth, m - p0);
+__device__ __forceinline__ void back_warp(const T* Tm, SquareTile L,
+                                          const T* isqv, T* xs, int lane) {
+  for (int p0 = (panels(L.m) - 1) * kPanelWidth; p0 >= 0; p0 -= kPanelWidth) {
+    const int w = min(kPanelWidth, L.m - p0);
     __syncwarp();
-    back_chain(Tm, m, p0, w, isqv, xs, lane);
+    back_chain(Tm, L, p0, w, isqv, xs, lane);
     __syncwarp();
-    for (int i = lane; i < p0; i += 32) back_update_row(Tm, m, p0, w, xs, i);
+    for (int i = lane; i < p0; i += 32) back_update_row(Tm, L, p0, w, xs, i);
   }
   __syncwarp();
 }
@@ -530,13 +547,14 @@ __device__ __forceinline__ void back_warp(const T* Tm, int m, const T* isqv,
 // per-thread state across each call, and a register allocation of its own
 // leaves the chains theirs (PERF.md §6).
 template <typename T>
-__device__ __noinline__ T solve_panels(const T* Tm, int m, const T* isqv, T* xs, T r,
-                          int warp, int lane) {
-  const int i = threadIdx.x;
+__device__ __noinline__ T solve_panels(const T* Tm, SquareTile L,
+                                       const T* isqv, T* xs, T r, int warp,
+                                       int lane) {
+  const int i = threadIdx.x, m = L.m;
   if (i < m) xs[i] = r;
   if (warp == 0) {
     __syncwarp();
-    fwd_chain(Tm, m, 0, min(kPanelWidth, m), isqv, xs, lane);
+    fwd_chain(Tm, L, 0, min(kPanelWidth, m), isqv, xs, lane);
   }
   const int last = (panels(m) - 1) * kPanelWidth;
   for (int p0 = 0; p0 < last; p0 += kPanelWidth) {
@@ -544,15 +562,15 @@ __device__ __noinline__ T solve_panels(const T* Tm, int m, const T* isqv, T* xs,
     const int n0 = p0 + kPanelWidth;  // the next panel
     if (warp == 0) {
       const int wn = min(kPanelWidth, m - n0);
-      if (lane < wn) fwd_update_row(Tm, m, p0, kPanelWidth, xs, n0 + lane);
+      if (lane < wn) fwd_update_row(Tm, L, p0, kPanelWidth, xs, n0 + lane);
       __syncwarp();
-      fwd_chain(Tm, m, n0, wn, isqv, xs, lane);
+      fwd_chain(Tm, L, n0, wn, isqv, xs, lane);
     } else {
       for (int t = n0 + i; t < m; t += blockDim.x - 32)  // rows past n0 + 31
-        fwd_update_row(Tm, m, p0, kPanelWidth, xs, t);
+        fwd_update_row(Tm, L, p0, kPanelWidth, xs, t);
     }
   }
-  back_panels(Tm, m, isqv, xs, warp, lane);
+  back_panels(Tm, L, isqv, xs, warp, lane);
   return i < m ? xs[i] : T(0);
 }
 

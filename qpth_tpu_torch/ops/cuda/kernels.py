@@ -8,7 +8,9 @@ Kernel A, ``factor_inv`` (``csrc/factor_inv.cu``), in three variants:
   (at m up to ``factor_inv_tile_max(dtype)`` also counted as
   ``factor_inv_tile``).
 Kernel B, ``ipm_step_xfree`` (``csrc/ipm_step_xfree.cu``): one whole x-free
-Mehrotra iteration for neq = 0.
+Mehrotra iteration for neq = 0. It and the other fused steps launch
+blocks of 6 warps in float32 up to m = 100, else of 8
+(:func:`ipm_step_shape`).
 ``inv_solve`` (``csrc/inv_solve.cu``): x = Linv^T (Linv rhs), every further
 solve on a factor that kernel A made.
 ``ipm_step`` (``csrc/ipm_step.cu``): one whole iteration for neq = 0 with
@@ -186,6 +188,26 @@ def _launch(variant, fn, device, *args):
         raise RuntimeError(f"{variant}: CUDA kernel launch failed "
                            f"(cudaError_t {err})")
     LAUNCHES[variant] += 1
+
+
+def ipm_step_shape(m: int, dtype, mode: str = "xfree", nz: int = 0,
+                   neq: int = 0):
+    """(warps, blocks): the fused step of ``mode`` ("xfree", "x" or "eq")
+    at width m (and nz, neq) on the current device, as its library launches
+    it: warps a block (6 in float32 up to m = 100, else 8;
+    csrc/ipm_step_body.cuh::step_warps) and the blocks one SM holds at once
+    (the CUDA occupancy calculator; ``qpth_ipm_step_warps``,
+    ``qpth_ipm_step_blocks_per_sm``)."""
+    stem = {"xfree": "ipm_step_xfree", "x": "ipm_step", "eq": "ipm_step_eq"}
+    lib = build.load(stem[mode])
+    f64 = int(dtype == torch.float64)
+    warps, blocks = lib.qpth_ipm_step_warps, lib.qpth_ipm_step_blocks_per_sm
+    warps.argtypes, warps.restype = [ctypes.c_int] * 2, ctypes.c_int
+    blocks.argtypes, blocks.restype = [ctypes.c_int] * 4, ctypes.c_int
+    n = blocks(m, f64, nz, neq)
+    if n < 0:
+        raise RuntimeError(f"ipm_step_shape: cudaError_t {-n}")
+    return warps(m, f64), n
 
 
 # ---------------------------------------------------------------------------
@@ -405,8 +427,9 @@ def ipm_step_xfree(R, s, z, q, n_correctors: int = 0):
     Replaces the TPU kernel
     ``qpth_tpu/ops/pallas/lanes.py::ipm_step_xfree_lanes``. On the H100 it
     is bound by bytes: R's triangle read once plus a few (B, m) vectors
-    (>= 0.028 ms at B = 4096, m = 100, f32). One block per QP keeps R in
-    one shared-memory tile and factors T there on kernel C's 32-row panels
+    (>= 0.028 ms at B = 4096, m = 100, f32). One block per QP stages R's
+    lower triangle in one shared-memory tile (mirrored), taking R z from R
+    in the same pass, and factors T there on kernel C's 32-row panels
     (one warp's chain per diagonal block, the trailing updates on register
     tiles), the predictor's RHS riding in the factor as one more column;
     the corrector and each Gondzio pass are a forward and a back

@@ -76,6 +76,11 @@ def test_factor_inv_kernel_at_every_width(cuda, m, variant, dtype):
     dinv[bad] = -2.0 * R[bad].diagonal().max()
     args = {"inv": (R, dinv), "solve": (R, dinv, rhs),
             "solve_rz": (R, dinv, rhs, z)}[variant]
+    # Built, loaded and launched once before the profile: a first call
+    # inside it may build the library with nvcc and load its module there,
+    # and the profiler then missed the launch it was to name.
+    kernels.factor_inv(*args)
+    torch.cuda.synchronize()
     kernels.reset_launches()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -304,6 +309,57 @@ def test_fused_steps_at_largest_fit(cuda, shared, dtype):
         for a, b in zip(got, plain(*args)):
             assert bool(torch.isfinite(a).all())
             assert (a - b).abs().max().item() <= TOL[dtype] * 10
+
+
+def _step_call(mode, mats, vecs, n_correctors):
+    """(kernel, plain version, arguments) of one fused step."""
+    x, s, z, y, q, ip, rb = vecs
+    if mode == "xfree":
+        return (kernels.ipm_step_xfree, kernels.ipm_step_xfree_plain,
+                (mats[0], s, z, q, n_correctors))
+    if mode == "x":
+        return (kernels.ipm_step, kernels.ipm_step_plain,
+                (mats[0], mats[1], x, s, z, q, ip, n_correctors))
+    return (kernels.ipm_step_eq, kernels.ipm_step_eq_plain,
+            (*mats, x, s, z, y, q, ip, rb, n_correctors))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shared", [(), ("R", "g", "eq")],
+                         ids=["batched", "shared"])
+@pytest.mark.parametrize("n_correctors", [0, 2])
+@pytest.mark.parametrize("m", [100, 101, 129])
+@pytest.mark.parametrize("mode", ["xfree", "x", "eq"])
+def test_fused_steps_either_side_of_the_warp_counts(cuda, mode, m,
+                                                    n_correctors, shared,
+                                                    dtype):
+    """Every mode either side of the float32 steps' 6-warp limit (m = 100,
+    and 101 in 8 warps) and past four panels (129): every output within
+    the plain version's tolerance."""
+    mats, vecs = _step_operands(64, m, m, m // 2, shared, dtype, cuda)
+    fn, plain, args = _step_call(mode, mats, vecs, n_correctors)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain(*args)):
+        assert bool(torch.isfinite(a).all())
+        assert (a - b).abs().max().item() <= TOL[dtype] * 10
+
+
+@pytest.mark.parametrize("mode", ["xfree", "x", "eq"])
+def test_fused_step_shape(cuda, mode):
+    """The blocks each fused step launches (kernels.ipm_step_shape, read
+    from its library): at the kernel table's shape (m = nz = 100, neq = 50)
+    float32 runs 6 warps, 5 blocks an SM where 8 warps held 4, and float64 8
+    warps, 2 blocks; from m = 101 float32 runs 8 warps too."""
+    nz = 100 if mode != "xfree" else 0
+    neq = 50 if mode == "eq" else 0
+    assert kernels.ipm_step_shape(100, torch.float32, mode, nz, neq) == (6, 5)
+    assert kernels.ipm_step_shape(100, torch.float64, mode, nz, neq) == (8, 2)
+    for dtype in (torch.float32, torch.float64):
+        for m in (8, 33, 64, 101, 129, 160):
+            warps, blocks = kernels.ipm_step_shape(m, dtype, mode, nz, neq)
+            assert warps == (6 if dtype == torch.float32 and m <= 100 else 8)
+            assert blocks >= 1
 
 
 @pytest.mark.parametrize("eq", [False, True])

@@ -7,8 +7,9 @@ The kernels run only on the card, where ``chip_smoke.py`` holds them to the
 plain versions. This model runs the body's order of operations in plain
 PyTorch, vectorized over the batch:
 
-* R's lower triangle mirrored onto the upper one, which the panel routines
-  read (R z is taken from the raw R before, by the plain versions' own
+* R's lower triangle staged to its mirror places in the tile's upper
+  triangle, which the panel routines read (the kernel takes R z from the raw
+  R in the same pass over R's rows; here by the plain versions' own
   algebra);
 * T = R + diag(s/z) factored on 32-row panels with the shift folded into
   each pivot and the predictor's RHS riding as one more column, then the
@@ -44,8 +45,8 @@ MS = [7, 32, 33, 100]
 TOL_F64 = 1e-10
 #: float32: the limit of tests/test_torch_kernels_step.py.
 TOL_F32 = 2e-5
-BODY = (Path(kernels.__file__).resolve().parents[2] / "csrc"
-        / "ipm_step_body.cuh")
+CSRC = Path(kernels.__file__).resolve().parents[2] / "csrc"
+BODY = CSRC / "ipm_step_body.cuh"
 
 
 def mirror(R):
@@ -99,13 +100,13 @@ def mehrotra_model(R, s, z, rhs_a, n_correctors, W=None, u=None,
     """The body's predictor, corrector and Gondzio passes, with the
     signature and results of ``kernels._mehrotra_plain``. Each block
     barrier the x-free kernel passes is appended to ``barriers``: the
-    staging's and R z's first, the freeze's ``__syncthreads_or`` last."""
+    vectors' first, the freeze's ``__syncthreads_or`` last."""
     bar = [] if barriers is None else barriers
     m = s.shape[-1]
     d = z / s
-    bar += ["staged", "R z"]
+    bar.append("vectors")
     isqv = torch.zeros_like(s)
-    # The mirror's barrier is chol_model's "staged"; the predictor's
+    # The staging pass's barrier is chol_model's "staged"; the predictor's
     # forward substitution rides in the factor, its back substitution
     # follows.
     Lt, dz_a = chol_model(mirror(R), s / z, rhs_a, barriers=bar, isqv=isqv)
@@ -234,7 +235,7 @@ def test_step_model_matches_plain(monkeypatch, mode, m, shared, n_correctors,
 def test_noise_above_the_diagonal_is_never_factored(m):
     """The factor reads R's lower triangle alone: noise above the diagonal
     leaves the model's factor, pivots and riding solve bit for bit as they
-    were (R z, taken from the raw R before the mirror, does see it)."""
+    were (R z, taken from the raw R as it is staged, does see it)."""
     t = _operands(m, m, False, torch.float64)
     R = t["R"]
     clean = torch.tril(R) + torch.tril(R, -1).transpose(-1, -2)
@@ -279,3 +280,57 @@ def test_barriers_per_qp(m, n_correctors):
     mehrotra_model(t["R"][:1], t["s"][:1], t["z"][:1], t["q"][:1],
                    n_correctors, barriers=bars)
     assert len(bars) == _step_barriers_of_the_source()(m, n_correctors)
+
+
+def _source_int(path, name):
+    return int(re.search(rf"constexpr \w+ {name} = (\d+);",
+                         path.read_text()).group(1))
+
+
+#: An SM's shared memory on an H100 (228 KB), and what the runtime keeps of
+#: it for each resident block.
+SM_SMEM, BLOCK_RESERVED = 233_472, 1024
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_launched_tile_follows_the_fit(dtype):
+    """The words the launcher asks for (prepare_step: m rows of stride
+    m | 1 where that fits beside the 8 words of reduction scratch, else m,
+    and the vectors) lie within kernels.SMEM_LIMIT (common.cuh's
+    kSmemLimit) wherever kernels.fits admits the step, so the fit predicate,
+    which counts the m x m tile, stays the bound. And in float32 the 6-warp
+    blocks (step_warps, up to kSixWarpMaxM) fit 5 an SM by shared memory in
+    every mode while nz + 4 neq <= 511, one more than 8-warp blocks' 4, and
+    no longer 3 rows past it."""
+    body = BODY.read_text()
+    assert _source_int(CSRC / "common.cuh", "kSmemLimit") == kernels.SMEM_LIMIT
+    assert ("step_smem_bytes<T>(SquareTile{m, m | 1}, nz, neq) + "
+            "kWarps * sizeof(T) <=") in body
+    assert "return sizeof(T) == 4 && m <= kSixWarpMaxM ? 6 : kWarps;" in body
+    six = _source_int(BODY, "kSixWarpMaxM")
+    elt = dtype.itemsize
+
+    def launched_words(m, nz, neq):
+        vecs = kernels.SMEM_VECTORS * m + nz + kernels.SMEM_EQ_VECTORS * neq
+        padded = m * (m | 1) + vecs
+        fits_padded = (padded + kernels.RED_WORDS) * elt <= kernels.SMEM_LIMIT
+        return padded if fits_padded else m * m + vecs
+
+    for m in range(1, 257):
+        for nz, neq in ((0, 0), (7, 8), (100, 50), (511, 0), (512, 64)):
+            if kernels.fits(m, dtype, nz, neq):
+                words = launched_words(m, nz, neq)
+                assert (words + kernels.RED_WORDS) * elt <= kernels.SMEM_LIMIT
+
+    def blocks_by_smem(m, nz, neq):
+        smem = (launched_words(m, nz, neq) + 6) * elt  # with red[6]
+        return SM_SMEM // (smem + BLOCK_RESERVED)
+
+    if dtype == torch.float32:
+        for m in range(1, six + 1):
+            for nz, neq in ((0, 0), (511, 0), (7, 126)):
+                assert blocks_by_smem(m, nz, neq) >= 5
+        assert blocks_by_smem(six + 3, 0, 0) == 4
+    # The kernel table's shape: 43.6 KB a float32 block, 87.2 KB float64.
+    assert launched_words(100, 0, 0) * elt == {4: 43_600, 8: 87_200}[elt]
